@@ -1,0 +1,321 @@
+"""Lowering: MappedGraph -> CompiledModel (paper Sec. IV-C "code gen").
+
+The port of ``repro.backend.lower``.  Each
+:class:`~repro_torch.core.dispatcher.MappedSegment` becomes ONE fused
+executor, a Python function over tensors on the model's device:
+
+* **conv / dwconv anchors** (route ``tiled_conv``) run the banded conv of
+  :mod:`repro_torch.kernels.tiled_conv`: the winning LOMA OY tile becomes
+  the band size (the L1-resident output stripe), and the bias/requant/relu
+  chain follows as the segment epilogue.
+* **int8 dense anchors with a plain-shift requant epilogue** (route
+  ``pallas_gemm``, the reference's name kept so ``routes()`` compare key
+  for key) run the hand-written Hopper int8 GEMM
+  :func:`repro_torch.kernels.matmul_requant` with ``rounding="even"``,
+  which reproduces the interpreter's round-half-to-even requant
+  bit-exactly.  In this package ``pallas_gemm`` *is* the CUDA kernel.
+* **everything else** (elementwise chains, pools, structural ops, CPU
+  fallback segments) evaluates through the op library shared with the
+  interpreter (``repro_torch.cnn.execute.apply_node``).
+
+Schedules reach the executors via
+:func:`repro_torch.core.schedule.schedule_from_result` — lowering never
+re-runs the DSE.  The DSE's GEMM block sizes are kept in
+``LoweredSegment.meta``; the CUDA kernel picks its own tiles.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Sequence
+
+import torch
+
+from repro_torch import obs
+from repro_torch._device import resolve_device
+from repro_torch.cnn.execute import apply_node
+from repro_torch.core import (
+    KernelSchedule,
+    MappedGraph,
+    MappedSegment,
+    MatchTarget,
+    Node,
+    schedule_from_result,
+)
+from repro_torch.kernels.matmul_requant import matmul_requant
+from repro_torch.kernels.tiled_conv import tiled_conv2d
+
+from .memory import plan_memory
+from .runtime import CompiledModel
+
+__all__ = ["lower", "LoweredSegment", "LoweringError"]
+
+
+class LoweringError(RuntimeError):
+    """The mapped graph cannot be lowered to segment executors."""
+
+
+@dataclass
+class LoweredSegment:
+    """One fused executor for one mapped segment."""
+
+    index: int
+    segment: MappedSegment
+    route: str  # "tiled_conv" | "pallas_gemm" | "reference" | "structural"
+    input_names: tuple[str, ...]
+    output_name: str
+    fn: Callable  # fn(seg_params: dict, *inputs) -> output tensor
+    kernel_schedule: KernelSchedule | None = None
+    meta: dict = field(default_factory=dict)
+
+    @property
+    def name(self) -> str:
+        return self.segment.anchor.name
+
+    @property
+    def module(self) -> str:
+        return self.segment.module
+
+    def params_slice(self, params: dict) -> dict:
+        return {n.name: params.get(n.name, {}) for n in self.segment.nodes}
+
+
+# ---------------------------------------------------------------------------
+# Fused executors
+# ---------------------------------------------------------------------------
+
+
+def _fused_reference_fn(
+    nodes: Sequence[Node],
+    input_names: tuple[str, ...],
+    output_name: str,
+    anchor_impl: Callable | None = None,
+):
+    """One function evaluating the whole segment chain through the shared
+    op library (bit-exact with the interpreter by construction).
+    ``anchor_impl(params, *xs)`` overrides the first node's evaluation —
+    that is how the banded conv slots in under the same epilogue."""
+
+    def fn(seg_params: dict, *xs):
+        env = dict(zip(input_names, xs))
+        for i, nd in enumerate(nodes):
+            args = [env[k] for k in nd.inputs]
+            p = seg_params.get(nd.name, {})
+            if i == 0 and anchor_impl is not None:
+                env[nd.name] = anchor_impl(p, *args)
+            else:
+                env[nd.name] = apply_node(nd, p, args)
+        return env[output_name]
+
+    return fn
+
+
+def _tiled_conv_impl(anchor: Node, ksched: KernelSchedule | None, band_tiling: bool):
+    """Anchor override running the banded conv with the winning schedule's
+    OY tile as the band size (one whole-array band when the caller
+    disables band tiling for host-throughput runs)."""
+    stride = int(anchor.attr("stride", 1) or 1)
+    depthwise = anchor.op == "dwconv2d"
+    oy = int(anchor.attr("OY", 1) or 1)
+    block_oy = oy
+    if band_tiling and ksched is not None:
+        block_oy = max(1, min(int(ksched.block_of("OY", oy)), oy))
+
+    def impl(p: dict, x):
+        groups = x.shape[-1] if depthwise else 1
+        return tiled_conv2d(x, p["w"], stride=stride, block_oy=block_oy, feature_groups=groups)
+
+    return impl, block_oy
+
+
+def _gemm_fn(seg: MappedSegment, ref_fn: Callable):
+    """dense(+bias)+requant(+relu) through the Hopper int8 GEMM.
+
+    Activations and weights are integer-valued by the integerized-graph
+    contract (every route into a dense passes a requant clip), so the int8
+    casts are lossless.  The dense weight is stored ``(N, K)``; the kernel
+    reads its ``(K, N)`` transposed view through strides, without a copy.
+    If the params supply a requant scale/addend at run time (which the
+    GEMM epilogue does not model), the call evaluates ``ref_fn`` — the
+    segment's fused reference executor — instead of diverging: that is
+    the segment's semantics, not a device fallback.
+    """
+    anchor = seg.anchor
+    has_relu = "relu" in [n.op for n in seg.epilogue]
+    bias_node = next((n for n in seg.nodes if n.op == "bias_add"), None)
+    requant_node = next(n for n in seg.nodes if n.op == "requant")
+    attr_shift = requant_node.attr("shift", None)
+    default_shift = 5.0 if attr_shift is None else float(attr_shift)
+
+    def fn(seg_params: dict, x):
+        rp = seg_params.get(requant_node.name, {})
+        if "scale" in rp or "addend" in rp:
+            return ref_fn(seg_params, x)
+        a8 = x.reshape(x.shape[0], -1).to(torch.int8)
+        w8 = seg_params[anchor.name]["w"].to(torch.int8)  # (N, K)
+        n_out = w8.shape[0]
+        if bias_node is not None:
+            bias = seg_params[bias_node.name]["b"].to(torch.int32)
+        else:
+            bias = torch.zeros(n_out, dtype=torch.int32, device=x.device)
+        mult = torch.ones(n_out, dtype=torch.int32, device=x.device)
+        shift = int(rp.get("shift", default_shift))
+        y8 = matmul_requant(a8, w8.T, mult, bias, shift=shift, relu=has_relu, rounding="even")
+        return y8.to(torch.float32)
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Route selection + entry point
+# ---------------------------------------------------------------------------
+
+
+def _kernel_schedule(seg: MappedSegment, target: MatchTarget) -> KernelSchedule | None:
+    if seg.schedule is None or seg.workload is None:
+        return None
+    module = target.module(seg.module)
+    return schedule_from_result(seg.schedule, seg.workload, module)
+
+
+def _route_of(seg: MappedSegment, use_pallas: bool) -> str:
+    anchor = seg.anchor
+    if anchor.op in ("conv2d", "dwconv2d"):
+        return "tiled_conv"
+    # only graphs explicitly integerized to 1-byte elems may take the int8
+    # kernel (a missing attr means unknown dtype: fail safe to reference)
+    eb = anchor.attr("elem_bytes", None)
+    int8 = eb is not None and int(eb) == 1
+    requant = next((n for n in seg.nodes if n.op == "requant"), None)
+    # a folded requant carrying scale/addend attrs needs the general
+    # affine epilogue — only the plain shift form maps onto the GEMM kernel
+    plain_requant = requant is not None and not (
+        "scale" in requant.attrs or "addend" in requant.attrs
+    )
+    if use_pallas and anchor.op == "dense" and plain_requant and int8:
+        return "pallas_gemm"
+    if seg.workload is None:
+        return "structural"
+    return "reference"
+
+
+def lower(
+    mapped: MappedGraph,
+    target: MatchTarget | str | None = None,
+    *,
+    use_pallas: bool = True,
+    band_tiling: bool = True,
+    allow_spill: bool = True,
+    hill_climb_iters: int = 200,
+    device=None,
+) -> CompiledModel:
+    """Compile a MappedGraph into fused, memory-planned segment executors.
+
+    ``target`` defaults to ``mapped.target``; a string is resolved as a
+    registered target name (:mod:`repro_torch.targets.registry`) and must
+    match the target the graph was dispatched on.  ``use_pallas=False``
+    forces dense segments onto the reference route and
+    ``band_tiling=False`` collapses convs to one whole-array band.
+    ``device`` is where the model runs: CUDA unless the caller asks for
+    ``"cpu"`` — without a card the default raises, it never falls back.
+    """
+    dev = resolve_device(device)
+    if target is None:
+        target = mapped.target
+    elif isinstance(target, str):
+        # a name adds no information beyond a consistency check: resolve
+        # it canonically (aliases included) without building a fresh
+        # target, then lower against the dispatch target itself
+        from repro_torch.targets.registry import get_target, target_info
+
+        resolved = target_info(target)["name"]
+        if resolved != mapped.target.name:
+            # registry names need not equal MatchTarget.name (a factory
+            # may decorate it): only the instantiated name is decisive
+            actual = get_target(target).name
+            if actual != mapped.target.name:
+                raise LoweringError(
+                    f"target {actual!r} does not match the dispatch target "
+                    f"{mapped.target.name!r}"
+                )
+        target = mapped.target
+    elif target is not mapped.target and target.name != mapped.target.name:
+        raise LoweringError(
+            f"target {target.name!r} does not match the dispatch target "
+            f"{mapped.target.name!r}"
+        )
+    graph = mapped.graph
+
+    # every graph output must be a segment boundary — fused chain internals
+    # never materialize, so nothing else is addressable at runtime
+    boundary = {s.output_node.name for s in mapped.segments}
+    for o in graph.outputs:
+        if graph.has(o) and o not in boundary:
+            raise LoweringError(f"graph output {o} is fused inside a segment")
+    covered = {n.name for s in mapped.segments for n in s.nodes}
+    missing = {n.name for n in graph.nodes} - covered
+    if missing:
+        raise LoweringError(f"mapped graph does not cover nodes: {sorted(missing)}")
+
+    lower_span = obs.span(
+        "lower", cat="compile", graph=graph.name, target=target.name,
+        segments=len(mapped.segments),
+    )
+    lower_span.__enter__()
+    lowered: list[LoweredSegment] = []
+    for i, seg in enumerate(mapped.segments):
+        # chain internals must be single-consumer (the pattern matcher
+        # guarantees it; re-checked here because lowering depends on it)
+        for nd in seg.nodes[:-1]:
+            ext = [c.name for c in graph.consumers(nd.name) if c.name not in {m.name for m in seg.nodes}]
+            if ext:
+                raise LoweringError(
+                    f"segment {seg.anchor.name}: internal node {nd.name} "
+                    f"is consumed outside the segment by {ext}"
+                )
+        inputs = seg.external_inputs(graph)
+        out_name = seg.output_node.name
+        with obs.span("lower.segment", cat="compile") as sp:
+            ksched = _kernel_schedule(seg, target)
+            route = _route_of(seg, use_pallas)
+            sp.set(segment=seg.anchor.name, module=seg.module, route=route)
+        obs.counter(f"lower.route.{route}").inc()
+        meta: dict = {"pattern": seg.pattern}
+        if route == "tiled_conv":
+            impl, block_oy = _tiled_conv_impl(seg.anchor, ksched, band_tiling)
+            fn = _fused_reference_fn(seg.nodes, inputs, out_name, anchor_impl=impl)
+            meta["block_oy"] = block_oy
+        elif route == "pallas_gemm":
+            ref_fn = _fused_reference_fn(seg.nodes, inputs, out_name)
+            fn = _gemm_fn(seg, ref_fn)
+            if ksched is not None:
+                # the DSE's tile, as the TPU kernel's BlockSpecs took it
+                k_out = int(seg.anchor.attr("K", 1) or 1)
+                meta["dse_block"] = {
+                    "M": int(ksched.block_of("B", 1)),
+                    "N": int(ksched.block_of("K", k_out)),
+                    "K": int(ksched.block_of("C", 1)),
+                }
+        else:
+            fn = _fused_reference_fn(seg.nodes, inputs, out_name)
+        lowered.append(
+            LoweredSegment(
+                index=i,
+                segment=seg,
+                route=route,
+                input_names=inputs,
+                output_name=out_name,
+                fn=fn,
+                kernel_schedule=ksched,
+                meta=meta,
+            )
+        )
+
+    plan = plan_memory(
+        mapped, allow_spill=allow_spill, hill_climb_iters=hill_climb_iters
+    )
+    routes: dict[str, int] = {}
+    for ls in lowered:
+        routes[ls.route] = routes.get(ls.route, 0) + 1
+    lower_span.set(routes=routes).__exit__(None, None, None)
+    return CompiledModel(mapped=mapped, segments=lowered, memory_plan=plan, device=dev)
