@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -7,18 +7,30 @@ Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
 failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build: every CUDA kernel of the main path compiled by ``nvcc`` from
-   ``src/repro_torch/kernels/csrc`` (build seconds, ``-Xptxas -v``);
-3. kernels: each kernel's wrapper on the card against its plain PyTorch
-   version, bit-exact (tolerance 0: integer arithmetic), on the main
-   path's shapes, the test grid and ragged shapes, both roundings, ReLU
-   on and off; then times at the main path's shapes;
-4. path: the four MLPerf-Tiny nets x {gap9, diana} through
+2. build: every CUDA kernel of the main paths compiled by ``nvcc`` from
+   ``src/repro_torch/kernels/csrc``, one compiler per source, all started
+   together (build seconds, ``-Xptxas -v``);
+3. kernels, each on the card against its plain PyTorch version:
+   ``matmul_requant`` bit-exact (tolerance 0: integer arithmetic) on the
+   CNN path's shapes, the test grid and ragged shapes, both roundings,
+   ReLU on and off; ``flash_attention`` within 2e-5 (f32) and 2e-2 (bf16)
+   on the kernel test grid (causal and not), Sq != Sk with ``q_offset``,
+   sliding windows, ragged lengths and the serving shapes; then times of
+   both at their paths' shapes beside the plain version, one PyTorch
+   library call and the bound;
+4. CNN path: the four MLPerf-Tiny nets x {gap9, diana} through
    ``repro_torch.core.dispatch`` -> ``repro_torch.backend.lower`` (default
    device) -> 4 requests through ``CompiledModel.run``, each output
-   bit-exact with the port's CPU interpreter, and the kernel launch count
+   bit-exact with the port's CPU interpreter, and the GEMM launch count
    equal to (GEMM segments) x 4 requests;
-5. one JSON line of per-kernel numbers, the card line, and last the
+5. LM parity: qwen2.5-3b at full width, 2 layers, float32, prefill and 4
+   greedy decode steps on the card (flash kernel) against the same module
+   on the CPU (plain version), logits within 1e-3 and identical tokens;
+6. LM serve path: ``repro_torch.launch.serve``'s engine on qwen2.5-3b at
+   full width and depth (36 layers, bf16, weights from a generator seeded
+   0), 6 requests, 12 new tokens each, greedy; every request served, all
+   logits finite, and the flash launch count equal to 36 x prefill calls;
+7. one JSON line of per-kernel numbers, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -27,11 +39,13 @@ checkout.  Imports nothing of JAX or of the reference package ``repro``.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -42,6 +56,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 import numpy as np  # noqa: E402
 
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch._device import resolve_device  # noqa: E402
 from repro_torch.backend import lower  # noqa: E402
 from repro_torch.cnn import (  # noqa: E402
     execute_graph,
@@ -49,20 +66,33 @@ from repro_torch.cnn import (  # noqa: E402
     mlperf_tiny_networks,
     params_to_torch,
 )
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import dispatch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
 from repro_torch.kernels.matmul_requant import matmul_requant, matmul_requant_plain  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
 
 DEV = torch.device("cuda")
 NETS = ("MobileNet", "ResNet", "DSCNN", "DAE")
 TARGETS = ("gap9", "diana")
 REQUESTS = 4
-# H100 SXM data sheet: HBM3 bytes/s and dense int8 tensor-core ops/s
+KERNELS = ("matmul_requant", "flash_attention")
+# H100 SXM data sheet: HBM3 bytes/s, dense int8 and bf16 tensor-core ops/s
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
+BF16_FLOPS_S = 989e12
 # (K, N) of every dense on the main path; all run at M = 1
 MAIN_KN = ((640, 128), (128, 128), (128, 8), (8, 128), (128, 640), (64, 10), (256, 2), (64, 12))
 GRID_MKN = ((8, 16, 128), (32, 64, 128), (128, 128, 256), (16, 96, 384), (3, 37, 11), (48, 80, 112))
+# flash attention: tolerance per dtype (tests/test_kernels.py:33), the
+# kernel test grid (B, H, KV, S, D), and qwen2.5-3b's prefill shapes
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_GRID = ((1, 4, 4, 64, 32), (2, 8, 2, 128, 64), (1, 6, 1, 96, 16))
+LM_ARCH = "qwen2_5_3b"
+FLASH_TIMED = ((4, 24), (4, 512), (1, 4096))  # (B, S) at H=16, KV=2, D=128, bf16, causal
+SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS = 6, 12, 4
 
 
 def card_line() -> str:
@@ -130,16 +160,19 @@ def library_gemm_requant(af, wf, mult, bias, shift):
 
 
 def phase_build() -> None:
-    info = _build.build("matmul_requant")
-    how = f"built in {info.seconds:.2f} s" if info.seconds else "reused an earlier build"
-    print(f"[build] matmul_requant: {how} -> {info.path}")
-    print("[build] nvcc -Xptxas -v:")
-    for line in info.ptxas.strip().splitlines():
-        print(f"    {line}")
+    """Every kernel's nvcc started at once, one thread each."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        infos = list(pool.map(_build.build, KERNELS))
+    for info in infos:
+        how = f"built in {info.seconds:.2f} s" if info.seconds else "reused an earlier build"
+        print(f"[build] {info.name}: {how} -> {info.path}")
+        print("[build] nvcc -Xptxas -v:")
+        for line in info.ptxas.strip().splitlines():
+            print(f"    {line}")
 
 
-def phase_kernels() -> dict:
-    """Bit-exact checks, then times at the main path's shapes."""
+def phase_gemm_kernel() -> dict:
+    """Bit-exact checks, then times at the CNN path's shapes."""
     worst = 0
     cases = 0
     shapes = [(1, k, n, True) for k, n in MAIN_KN] + [(m, k, n, False) for m, k, n in GRID_MKN]
@@ -187,7 +220,7 @@ def phase_kernels() -> dict:
     return {"max_abs_err": worst, "rows": rows}
 
 
-def phase_path() -> dict:
+def phase_cnn_path() -> dict:
     """4 nets x 2 targets through dispatch -> lower -> run on the card."""
     nets = mlperf_tiny_networks()
     cells = []
@@ -246,23 +279,288 @@ def phase_path() -> dict:
     return {"cells": cells, "launches": sum(c["launches"] for c in cells)}
 
 
+def flash_operands(B, H, KV, Sq, Sk, D, dtype, seed, *, bshd=False):
+    """q (B, H, Sq, D) and k, v (B, KV, Sk, D) on the card, rounded to
+    ``dtype`` from float32 normals.  With ``bshd`` each is the (B, H, S, D)
+    view of (B, S, H, D) storage, as the model passes its activations."""
+    rng = np.random.default_rng(seed)
+
+    def mk(b, h, s, d):
+        if bshd:
+            x = rng.normal(size=(b, s, h, d)).astype(np.float32)
+            return torch.from_numpy(x).to(DEV, dtype).transpose(1, 2)
+        return torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32)).to(DEV, dtype)
+
+    return mk(B, H, Sq, D), mk(B, KV, Sk, D), mk(B, KV, Sk, D)
+
+
+def phase_flash_kernel() -> dict:
+    """The flash kernel against its plain version on the card, within
+    the reference kernel test's tolerance; max |kernel - plain| printed."""
+    cfg = get_config(LM_ARCH)
+    H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim_
+    cases = []  # (label, B, H, KV, Sq, Sk, D, dtype, kwargs, bshd)
+    for dtype in (torch.float32, torch.bfloat16):
+        for B_, H_, KV_, S, D_ in FLASH_GRID:
+            for causal in (True, False):
+                cases.append(("grid", B_, H_, KV_, S, S, D_, dtype, {"causal": causal}, False))
+        for Sq, Sk in ((16, 64), (1, 40), (24, 300)):
+            cases.append(("q_offset", 2, 4, 2, Sq, Sk, 32, dtype, {"q_offset": Sk - Sq}, False))
+        for Sq, Sk, off, causal, win in ((64, 64, 0, True, 16), (32, 64, 32, True, 8), (64, 64, 0, False, 24),
+                                         (8, 32, 100, True, 4), (40, 300, 260, True, 70)):
+            cases.append(("window", 2, 4, 2, Sq, Sk, 32, dtype,
+                          {"causal": causal, "q_offset": off, "window": win}, False))
+        for S in (5, 24, 37):
+            for causal in (True, False):
+                cases.append(("ragged", 2, 4, 1, S, S, 24, dtype, {"causal": causal}, False))
+        for S in (4, 17, 24, 35):  # serving: the engine's prompt lengths and past them
+            cases.append(("serve", 4, H, KV, S, S, D, dtype, {"causal": True}, True))
+    worst: dict[str, float] = {}
+    for i, (label, B, H_, KV_, Sq, Sk, D_, dtype, kw, bshd) in enumerate(cases):
+        q, k, v = flash_operands(B, H_, KV_, Sq, Sk, D_, dtype, seed=i, bshd=bshd)
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, **kw)
+        if got.dtype != dtype or got.shape != q.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"flash {label} {(B, H_, KV_, Sq, Sk, D_)} {dtype} {kw}: bad output")
+        diff = (got.float() - want.float()).abs()
+        tol = FLASH_TOL[dtype]
+        if bool((diff > tol + tol * want.float().abs()).any()):
+            raise AssertionError(
+                f"flash {label} {(B, H_, KV_, Sq, Sk, D_)} {dtype} {kw}: max |kernel - plain| "
+                f"= {float(diff.max()):.3g} beyond atol = rtol = {tol}"
+            )
+        key = f"{label} {str(dtype).split('.')[-1]}"
+        worst[key] = max(worst.get(key, 0.0), float(diff.max()))
+    print(f"[kernels] flash_attention within tolerance of flash_attention_plain on {len(cases)} cases "
+          f"(f32 atol=rtol=2e-5, bf16 2e-2); max |kernel - plain| per group:")
+    for key, err in worst.items():
+        print(f"    {key:18s} {err:.3e}")
+    return {
+        "max_abs_err": max(worst.values()),
+        "max_abs_err_f32": max(e for k, e in worst.items() if k.endswith("float32")),
+    }
+
+
+def flash_bound_ms(B, H, KV, S, D) -> tuple[float, str]:
+    """Causal bf16 attention: max(bytes / HBM rate, flops / bf16
+    tensor-core rate), q, k, v read once and o written once (2 bytes an
+    element), 4·B·H·S·S·D flops halved by the causal mask."""
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
+    flops = 4 * B * H * S * S * D * 0.5
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_flash_timing() -> list[dict]:
+    """Times at qwen2.5-3b's prefill shapes, bf16, causal."""
+    cfg = get_config(LM_ARCH)
+    H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim_
+    print(f"[kernels] flash_attention at {LM_ARCH} prefill shapes (H={H}, KV={KV}, D={D}, bf16, causal), "
+          "ms per call; graph = device time in a CUDA graph, eager = launched from Python, "
+          "library = F.scaled_dot_product_attention(is_causal, enable_gqa), timed only")
+    print(f"    {'B':>2s} {'S':>5s} {'kernel':>10s} {'kern eager':>10s} {'plain':>10s} "
+          f"{'library':>10s} {'bound':>10s}")
+    rows = []
+    for B, S in FLASH_TIMED:
+        q, k, v = flash_operands(B, H, KV, S, S, D, torch.bfloat16, seed=S, bshd=True)
+        iters = 200 if S <= 512 else 10
+        row = {
+            "shape": [B, H, KV, S, D],
+            "ms": graph_ms(lambda: flash_attention(q, k, v, causal=True), iters),
+            "eager_ms": eager_ms(lambda: flash_attention(q, k, v, causal=True), iters),
+            "plain_ms": graph_ms(lambda: flash_attention_plain(q, k, v, causal=True), iters),
+            "library_ms": graph_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), iters
+            ),
+        }
+        row["bound_ms"], row["bound_by"] = flash_bound_ms(B, H, KV, S, D)
+        rows.append(row)
+        print(f"    {B:>2d} {S:>5d} {row['ms']:>10.5f} {row['eager_ms']:>10.5f} {row['plain_ms']:>10.5f} "
+              f"{row['library_ms']:>10.5f} {row['bound_ms']:>10.6f} ({row['bound_by']})")
+    return rows
+
+
+def phase_lm_parity() -> None:
+    """qwen2.5-3b, full width, 2 layers, fp32: the module on the card
+    (flash kernel) against a copy on the CPU (plain version)."""
+    cfg = get_config(LM_ARCH).replace(n_layers=2, dtype="float32")
+    t0 = time.perf_counter()
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(DEV)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 16)))
+    worst, tokens = 0.0, []
+    flash_attention.launches = 0
+    with torch.inference_mode():
+        lg, cache = gpu.prefill(toks.to(DEV), max_len=24)
+        want, want_cache = cpu.prefill(toks, max_len=24)
+        for step in range(5):
+            got = lg.cpu()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"LM parity step {step}: logits not finite on the card")
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, atol=1e-3, rtol=1e-3):
+                raise AssertionError(f"LM parity step {step}: max |card - cpu| logit = {err:.3g} beyond 1e-3")
+            worst = max(worst, err)
+            nxt, nxt_dev = want.argmax(-1), got.argmax(-1)
+            if not torch.equal(nxt, nxt_dev):
+                raise AssertionError(f"LM parity step {step}: greedy tokens {nxt_dev.tolist()} != cpu {nxt.tolist()}")
+            tokens.append(nxt.tolist())
+            if step == 4:
+                break
+            lg, cache = gpu.decode_step(cache, nxt.to(DEV), 16 + step)
+            want, want_cache = cpu.decode_step(want_cache, nxt, 16 + step)
+    launches = flash_attention.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"LM parity: {launches} flash launches, expected {cfg.n_layers} (one per layer)")
+    print(f"[lm] {cfg.name} full width x {cfg.n_layers} layers fp32: prefill + 4 greedy steps, card vs cpu "
+          f"max |logit diff| {worst:.3e} (atol=rtol=1e-3), tokens identical {tokens}, "
+          f"flash launches {launches}, {time.perf_counter() - t0:.1f} s")
+    del cpu, gpu, cache, want_cache
+    torch.cuda.empty_cache()
+
+
+class TimedLM:
+    """The serving engine's model, with each prefill and decode step timed
+    on the host clock between ``torch.cuda.synchronize()`` calls and its
+    logits checked finite.  Everything else passes through."""
+
+    def __init__(self, lm):
+        self.lm = lm
+        self.prefill_ms: list[tuple[tuple, float]] = []
+        self.decode_ms: list[float] = []
+        self.finite = True
+
+    def __getattr__(self, name):
+        return getattr(self.lm, name)
+
+    def _timed(self, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        self.finite &= bool(torch.isfinite(out[0]).all())
+        return out, ms
+
+    def prefill(self, tokens, max_len=None):
+        out, ms = self._timed(self.lm.prefill, tokens, max_len=max_len)
+        self.prefill_ms.append((tuple(tokens.shape), ms))
+        return out
+
+    def decode_step(self, cache, tokens, position):
+        out, ms = self._timed(self.lm.decode_step, cache, tokens, position)
+        self.decode_ms.append(ms)
+        return out
+
+
+def decode_breakdown(lm, steps: int = 3) -> None:
+    """Where a decode step's time goes: ``torch.profiler`` over ``steps``
+    decode steps at the serving shape (4 slots, 24 positions filled),
+    device kernel time by name against the host clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    B, S = SERVE_SLOTS, 24
+    with torch.inference_mode():
+        toks = torch.zeros((B, S), dtype=torch.int64, device=DEV)
+        _, cache = lm.prefill(toks, max_len=serve.MAX_LEN)
+        nxt = torch.zeros(B, dtype=torch.int64, device=DEV)
+        lm.decode_step(cache, nxt, S)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                lm.decode_step(cache, nxt, S + 1 + i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_name: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not by_name:
+        print(f"[serve] decode breakdown: wall {wall_ms:.3f} ms per step; device time not measured "
+              "(the profiler recorded no CUDA events)")
+        return
+    busy_ms = sum(sum(v) for v in by_name.values()) / 1e3 / steps
+    launches = sum(len(v) for v in by_name.values()) / steps
+    print(f"[serve] decode breakdown (torch.profiler, {steps} steps, B={B}): wall {wall_ms:.3f} ms per step, "
+          f"device busy {busy_ms:.3f} ms ({launches:.0f} device ops per step), "
+          f"device idle {100 * (1 - busy_ms / wall_ms):.1f} %; top device ops, ms per step:")
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
+    for name, us in top:
+        print(f"    {sum(us) / 1e3 / steps:8.4f}  x{len(us) // steps:<4d} {name[:100]}")
+
+
+def phase_serve() -> dict:
+    """launch.serve's engine on qwen2.5-3b, full width and depth, bf16."""
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    eng = serve.build_engine(cfg, "cuda", slots=SERVE_SLOTS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    timed = TimedLM(eng.model)
+    eng.model = timed
+    serve.submit_requests(eng, cfg, SERVE_REQUESTS, SERVE_NEW)
+    # the main path: counts from 0 just before, read just after
+    flash_attention.launches = 0
+    matmul_requant.launches = 0
+    t1 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = flash_attention.launches
+    prefills = len(timed.prefill_ms)
+    if launches != cfg.n_layers * prefills:
+        raise AssertionError(f"serve: {launches} flash launches, expected {cfg.n_layers} layers x {prefills} prefills")
+    if matmul_requant.launches:
+        raise AssertionError("serve: the int8 GEMM kernel ran on the LM path")
+    if sorted(r.rid for r in done) != list(range(SERVE_REQUESTS)):
+        raise AssertionError(f"serve: served {[r.rid for r in done]}, expected all {SERVE_REQUESTS}")
+    for r in done:
+        if len(r.out_tokens) != SERVE_NEW or r.truncated or not all(0 <= t < cfg.vocab for t in r.out_tokens):
+            raise AssertionError(f"serve: request {r.rid} gave {r.out_tokens} (truncated={r.truncated})")
+    if not timed.finite:
+        raise AssertionError("serve: logits not finite")
+    new_tokens = sum(len(r.out_tokens) for r in done)
+    for r in sorted(done, key=lambda r: r.rid):
+        print(f"[serve] rid={r.rid} prompt_len={len(r.prompt)} out={r.out_tokens}")
+    dec = sorted(timed.decode_ms)
+    print(f"[serve] {cfg.name} full width x {cfg.n_layers} layers bf16 ({sum(p.numel() for p in eng.model.parameters()) / 1e9:.2f} B params), "
+          f"slots {SERVE_SLOTS}, max_len {serve.MAX_LEN}: weights built in {build_s:.2f} s; "
+          f"{len(done)} requests, {new_tokens} tokens in {run_s:.3f} s ({new_tokens / run_s:.1f} tok/s); "
+          f"refills {eng.refills}, decode steps {eng.decode_steps}, flash launches {launches} = "
+          f"{cfg.n_layers} x {prefills} prefills")
+    print("[serve] prefill ms (tokens shape): "
+          + ", ".join(f"{ms:.3f} {list(shape)}" for shape, ms in timed.prefill_ms))
+    print(f"[serve] decode ms per step: median {dec[len(dec) // 2]:.3f}, min {dec[0]:.3f}, max {dec[-1]:.3f} "
+          f"over {len(dec)} steps")
+    decode_breakdown(timed.lm)
+    return {"launches": launches, "prefills": prefills}
+
+
 def main() -> None:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    resolve_device("cuda")  # IEEE fp32 matmuls on the card (TF32 off) for every comparison
 
     phase_build()
-    kern = phase_kernels()
-    path = phase_path()
+    gemm = phase_gemm_kernel()
+    flash = phase_flash_kernel()
+    flash_rows = phase_flash_timing()
+    cnn = phase_cnn_path()
+    phase_lm_parity()
+    lm = phase_serve()
 
-    big = max(kern["rows"], key=lambda r: r["shape"][1] * r["shape"][2])
-    entry = {
+    big = max(gemm["rows"], key=lambda r: r["shape"][1] * r["shape"][2])
+    entries = [{
         "name": "matmul_requant",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul_requant.cu",
         "replaces": "src/repro/kernels/matmul_requant.py:45",
-        "launches": path["launches"],
-        "max_abs_err": kern["max_abs_err"],
+        "launches": cnn["launches"],
+        "max_abs_err": gemm["max_abs_err"],
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
@@ -270,8 +568,27 @@ def main() -> None:
         "library_ms": big["library_ms"],
         "shape": big["shape"],
         "eager_ms": big["eager_ms"],
-    }
-    print(json.dumps({"kernels": [entry]}))
+    }]
+    serve_row = flash_rows[0]  # the serving engine's prefill shape
+    entries.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "launches": lm["launches"],
+        "max_abs_err": flash["max_abs_err"],
+        "ms": serve_row["ms"],
+        "plain_ms": serve_row["plain_ms"],
+        "bound_ms": serve_row["bound_ms"],
+        "bound_by": serve_row["bound_by"],
+        "library_ms": serve_row["library_ms"],
+        "shape": serve_row["shape"],
+        "eager_ms": serve_row["eager_ms"],
+        "max_abs_err_f32": flash["max_abs_err_f32"],
+        "prefill_shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")}
+                           for r in flash_rows],
+    })
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,34 @@
+"""qwen2.5-3b [dense]: 36L d_model=2048 16H (GQA kv=2) d_ff=11008
+vocab=151936 — GQA, QKV bias. [hf:Qwen/Qwen2.5-0.5B; hf]"""
+
+from repro_torch.models import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-3b",
+    family="dense",
+    n_layers=36,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=2,
+    d_ff=11008,
+    vocab=151936,
+    activation="swiglu",
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,
+    remat="full",
+)
+
+SMOKE = ModelConfig(
+    name="qwen2.5-smoke",
+    family="dense",
+    n_layers=3,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    d_ff=176,
+    vocab=512,
+    activation="swiglu",
+    qkv_bias=True,
+    tie_embeddings=True,
+)

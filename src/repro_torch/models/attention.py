@@ -1,0 +1,192 @@
+"""GQA attention with RoPE, local windows and encoder mode — in PyTorch.
+
+The port of ``repro.models.attention``.  The training/prefill path
+(:func:`attention`) computes the reference's chunked online softmax
+(``_chunked_attention``) through :func:`repro_torch.kernels.flash_attention`:
+the hand-written CUDA kernel on the card, its plain torch version on the
+CPU.  The activations stay ``(B, S, H, D)``; the kernel reads them as
+``(B, H, S, D)`` views through their strides, with no copy.
+
+Decode (:func:`decode_attention`, and ``LM._decode_attn``) is one query
+token against the cache, a softmax over ``S_max`` keys: plain torch, as
+the reference computes it in plain jnp.
+
+GQA: ``n_kv_heads`` K/V heads shared by groups of query heads (kv=1 is
+MQA, e.g. granite-34b).  M-RoPE (qwen2-vl) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ParamSpec
+
+__all__ = [
+    "attention_params",
+    "attention",
+    "attention_kv",
+    "decode_attention",
+    "rope_tables",
+    "apply_rope",
+    "KVCache",
+]
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) -> sin/cos (..., S, head_dim//2), float32."""
+    half = head_dim // 2
+    exponent = torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / (theta**exponent)
+    ang = positions.float()[..., None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D); sin/cos (B, S, D/2) or (S, D/2)."""
+    if sin.dim() == 2:
+        sin, cos = sin[None], cos[None]
+    sin, cos = sin[:, :, None, :], cos[:, :, None, :]
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def attention_params(cfg: ModelConfig) -> dict:
+    d, hd, nh, nkv = cfg.d_model, cfg.head_dim_, cfg.n_heads, cfg.kv_heads
+    p = {
+        "wq": ParamSpec((d, nh * hd), ("embed", "heads"), cfg.dtype),
+        "wk": ParamSpec((d, nkv * hd), ("embed", "kv_heads"), cfg.dtype),
+        "wv": ParamSpec((d, nkv * hd), ("embed", "kv_heads"), cfg.dtype),
+        "wo": ParamSpec((nh * hd, d), ("heads", "embed"), cfg.dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ParamSpec((nh * hd,), ("heads",), cfg.dtype, init="zeros")
+        p["bk"] = ParamSpec((nkv * hd,), ("kv_heads",), cfg.dtype, init="zeros")
+        p["bv"] = ParamSpec((nkv * hd,), ("kv_heads",), cfg.dtype, init="zeros")
+    return p
+
+
+class KVCache(NamedTuple):
+    """Decode-time cache for one attention layer."""
+
+    k: torch.Tensor  # (B, S_max, KV, hd)
+    v: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+
+def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    B, S, _ = x.shape
+    hd, nh, nkv = cfg.head_dim_, cfg.n_heads, cfg.kv_heads
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    return q.reshape(B, S, nh, hd), k.reshape(B, S, nkv, hd), v.reshape(B, S, nkv, hd)
+
+
+def attention_kv(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    sin: torch.Tensor | None,
+    cos: torch.Tensor | None,
+    causal: bool | None = None,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`attention`, also returning the roped k and v ``(B, S, KV, hd)``
+    it attended over (prefill writes them to the cache; the reference
+    computes the projections a second time for that)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(params, x, cfg)
+    if sin is not None:
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+    causal = cfg.causal if causal is None else causal
+    out = flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window
+    )
+    out = out.transpose(1, 2).to(x.dtype).reshape(B, S, -1)
+    return out @ params["wo"], k, v
+
+
+def attention(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    sin: torch.Tensor | None,
+    cos: torch.Tensor | None,
+    causal: bool | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Full-sequence attention (training / prefill): one flash launch."""
+    return attention_kv(params, x, cfg, sin=sin, cos=cos, causal=causal, window=window)[0]
+
+
+def _attend_cache(q, k, v, valid, cfg: ModelConfig, dtype) -> torch.Tensor:
+    """One query token (B, 1, H, hd) against a (B, S_max, KV, hd) cache:
+    softmax over the ``valid`` keys, fp32 math."""
+    B = q.shape[0]
+    hd, nh, nkv = cfg.head_dim_, cfg.n_heads, cfg.kv_heads
+    g = nh // nkv
+    qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, 1, nkv, g, hd)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qf, k.float())
+    s = torch.where(valid[None, None, None, None, :], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p, v.float())
+    return out.reshape(B, 1, nh * hd).to(dtype)
+
+
+def decode_attention(
+    params: dict,
+    x: torch.Tensor,  # (B, 1, D)
+    cache: KVCache,
+    position: int,  # index of the new token
+    cfg: ModelConfig,
+    *,
+    window: int | None = None,
+) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode against a (B, S_max, KV, hd) cache.
+
+    The cache is written in place (slot ``position``, clamped into the
+    cache as ``lax.dynamic_update_slice`` clamps) and returned.
+    """
+    hd = cfg.head_dim_
+    position = int(position)
+    q, k_new, v_new = _qkv(params, x, cfg)
+    if cfg.pos_kind != "none":
+        pos = torch.tensor([position], dtype=torch.int32, device=x.device)
+        sin, cos = rope_tables(pos, hd, cfg.rope_theta)
+        q = apply_rope(q, sin, cos)
+        k_new = apply_rope(k_new, sin, cos)
+    S_max = cache.k.shape[1]
+    slot = min(max(position, 0), S_max - 1)
+    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    k_pos = torch.arange(S_max, device=x.device)
+    valid = k_pos <= position
+    if window is not None:
+        valid &= k_pos > position - window
+    out = _attend_cache(q, cache.k, cache.v, valid, cfg, x.dtype)
+    return out @ params["wo"], cache

@@ -1,0 +1,400 @@
+"""The LM for the dense ``attn`` architectures — in PyTorch.
+
+The port of ``repro.models.transformer``.  One class, :class:`LM`, an
+``nn.Module`` holding its own parameters, for stacks of ``attn`` blocks
+with a dense MLP (gemma-7b, granite-34b, qwen2.5-3b, starcoder2-15b).
+The other block families raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
+
+What changes against the reference:
+
+* The reference scans stacked per-layer parameters with ``lax.scan``;
+  here a Python loop walks ``LM.layers``, one module per layer, whose
+  parameters are the slices of the reference's stacked leaves.
+  :meth:`LM.param_specs` and :meth:`LM.param_shapes` still describe the
+  stacked tree, and :func:`params_from_jax` loads one into the module.
+* The cache keeps the reference's tree and layout: per stack
+  ``{"k", "v": (layers, B, S_max, KV, hd), "pos": (layers, S_max)}``
+  with the ring-buffer ``pos`` leaf.  ``prefill`` and ``decode_step``
+  write it in place (no copy of the cache per step) and return it.
+* Prefill attention runs through the flash kernel
+  (:func:`repro_torch.models.attention.attention_kv`) and reuses its k/v
+  for the cache, where the reference projects them a second time.
+
+Entry points:
+  forward(tokens | embeds)            -> (logits (B,S,V), aux)
+  prefill(tokens, max_len)            -> (last_logits (B,V), cache)
+  decode_step(cache, tokens, position)-> (logits (B,V), cache)
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch._device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.attention import attention_kv, rope_tables
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    ParamSpec,
+    embed_params,
+    init_from_specs,
+    map_specs,
+    mlp,
+    mlp_params,
+    rmsnorm,
+    spec_shapes,
+    torch_dtype,
+)
+
+__all__ = ["LM", "StackSpec", "params_from_jax"]
+
+
+@dataclass(frozen=True)
+class StackSpec:
+    """One stack: a block pattern repeated ``repeats`` times."""
+
+    pattern: tuple[str, ...]  # e.g. ("attn",) or ("rglru","rglru","attn")
+    repeats: int
+
+
+def _plan_stacks(cfg: ModelConfig) -> list[StackSpec]:
+    pat = cfg.layer_pattern()
+    period = len(cfg.block_types)
+    if period > 1:
+        reps = len(pat) // period
+        rem = len(pat) % period
+        stacks = [StackSpec(tuple(cfg.block_types), reps)]
+        if rem:
+            stacks.append(StackSpec(tuple(pat[-rem:]), 1))
+        return stacks
+    return [StackSpec((pat[0],), len(pat))]
+
+
+def _stack_specs(specs, n: int):
+    """Add a leading 'layers' axis of size n to every ParamSpec."""
+    return map_specs(lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.dtype, s.init, s.scale), specs)
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the port does not run yet, naming its ROADMAP item."""
+    missing = []
+    if cfg.is_moe:
+        missing.append("MoE blocks with the moe_gmm kernel (ROADMAP A11/B3)")
+    if "ssd" in cfg.block_types:
+        missing.append("mamba2 SSD blocks with the ssd_scan kernel (ROADMAP A11/B4)")
+    if "rglru" in cfg.block_types or "local_attn" in cfg.block_types:
+        missing.append("recurrentgemma RG-LRU and local-attention blocks with the rglru_scan kernel (ROADMAP A11/B5)")
+    if cfg.pos_kind == "mrope":
+        missing.append("M-RoPE positions for qwen2-vl (ROADMAP A11)")
+    if cfg.frontend_stub:
+        missing.append("the modality frontend stub (ROADMAP A11)")
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: the port does not run " + "; ".join(missing) + " yet")
+
+
+class _Params(nn.Module):
+    """A nested dict of tensors, registered as (frozen) parameters."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _Params(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self) -> dict:
+        out: dict[str, Any] = dict(self._parameters)
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+
+class LM(nn.Module):
+    """The reference ``LM`` with its parameters inside.
+
+    ``device=None`` means the CUDA device (raising without a card); the
+    weights are drawn from ``generator`` (default: a generator on
+    ``device`` seeded 0) with the reference's distribution.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.stacks = _plan_stacks(cfg)
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        tree = init_from_specs(self.param_specs(), generator, dev)
+        layers = []
+        for i, st in enumerate(self.stacks):
+            stack = tree.pop(f"stack{i}")
+            for r in range(st.repeats):
+                for j, bt in enumerate(st.pattern):
+                    layers.append(_Params(_index(stack[f"b{j}_{bt}"], r)))
+        self.layers = nn.ModuleList(layers)
+        self.top = _Params(tree)  # embed, final_norm (and lm_head)
+
+    # ------------------------------------------------------------------
+    # Parameters
+    # ------------------------------------------------------------------
+    def _block_specs(self, btype: str) -> dict:
+        cfg = self.cfg
+        d = cfg.d_model
+        return {
+            "norm1": ParamSpec((d,), ("embed",), "float32", init="zeros"),
+            "attn": attn_mod.attention_params(cfg),
+            "norm2": ParamSpec((d,), ("embed",), "float32", init="zeros"),
+            "mlp": mlp_params(d, cfg.d_ff, cfg.activation, cfg.dtype),
+        }
+
+    def param_specs(self) -> dict:
+        """The reference's parameter tree: stacked ``stack{i}`` leaves with
+        a leading ``layers`` axis."""
+        cfg = self.cfg
+        specs: dict[str, Any] = {"embed": embed_params(cfg.vocab, cfg.d_model, cfg.dtype)}
+        for i, st in enumerate(self.stacks):
+            blk = {f"b{j}_{bt}": self._block_specs(bt) for j, bt in enumerate(st.pattern)}
+            specs[f"stack{i}"] = _stack_specs(blk, st.repeats)
+        specs["final_norm"] = ParamSpec((cfg.d_model,), ("embed",), "float32", init="zeros")
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"), cfg.dtype)
+        return specs
+
+    def param_shapes(self):
+        """Tree of ``(shape, dtype name)`` parallel to :meth:`param_specs`."""
+        return spec_shapes(self.param_specs())
+
+    @property
+    def device(self) -> torch.device:
+        return self.top.embed.device
+
+    def _params(self) -> tuple[dict, list[dict]]:
+        """The parameters as the reference's dicts: top level, and one per layer."""
+        return self.top.tree(), [layer.tree() for layer in self.layers]
+
+    # ------------------------------------------------------------------
+    # Blocks
+    # ------------------------------------------------------------------
+    def _embed_in(self, top: dict, tokens: torch.Tensor | None, embeds: torch.Tensor | None):
+        cfg = self.cfg
+        if embeds is not None:
+            return embeds.to(torch_dtype(cfg.dtype))
+        x = top["embed"][tokens]
+        # gemma-style scale: sqrt in float32, then rounded to the weights' dtype
+        scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32))
+        return x * scale.to(device=x.device, dtype=x.dtype)
+
+    def _rope_for(self, positions: torch.Tensor | None, S: int):
+        cfg = self.cfg
+        if cfg.pos_kind == "none":
+            return (None, None)
+        if positions is None:
+            positions = torch.arange(S, device=self.device)
+        return rope_tables(positions, cfg.head_dim_, cfg.rope_theta)
+
+    def _head(self, top: dict, x: torch.Tensor) -> torch.Tensor:
+        x = rmsnorm(x, top["final_norm"], self.cfg.norm_eps)
+        head = top["embed"] if self.cfg.tie_embeddings else top["lm_head"]
+        return x @ head.t()
+
+    def _block(self, bp: dict, x: torch.Tensor, rope, lc: dict | None = None) -> torch.Tensor:
+        """One ``attn`` block; with ``lc`` it also fills that layer's cache."""
+        cfg = self.cfg
+        h = rmsnorm(x, bp["norm1"], cfg.norm_eps)
+        sin, cos = rope
+        y, k, v = attention_kv(bp["attn"], h, cfg, sin=sin, cos=cos)
+        if lc is not None:
+            _fill_layer_cache(lc, k, v)
+        x = x + y
+        h2 = rmsnorm(x, bp["norm2"], cfg.norm_eps)
+        return x + mlp(bp["mlp"], h2, cfg.activation)
+
+    # ------------------------------------------------------------------
+    # Training / encoder forward
+    # ------------------------------------------------------------------
+    def forward(
+        self,
+        tokens: torch.Tensor | None = None,
+        *,
+        embeds: torch.Tensor | None = None,
+        positions: torch.Tensor | None = None,
+        last_only: bool = False,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward; returns (logits (B,S,V), moe_aux = 0)."""
+        top, layers = self._params()
+        x = self._embed_in(top, tokens, embeds)
+        rope = self._rope_for(positions, x.shape[1])
+        for bp in layers:
+            x = self._block(bp, x, rope)
+        if last_only:
+            x = x[:, -1:]
+        return self._head(top, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # ------------------------------------------------------------------
+    # Serving: cache init / prefill / decode
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        cfg = self.cfg
+        dt, dev = torch_dtype(cfg.dtype), self.device
+        kv, hd = cfg.kv_heads, cfg.head_dim_
+        cache: dict[str, Any] = {}
+        for i, st in enumerate(self.stacks):
+            n = st.repeats
+            cache[f"stack{i}"] = {
+                f"b{j}_{bt}": {
+                    "k": torch.zeros((n, batch, max_len, kv, hd), dtype=dt, device=dev),
+                    "v": torch.zeros((n, batch, max_len, kv, hd), dtype=dt, device=dev),
+                    "pos": torch.full((n, max_len), -1, dtype=torch.int32, device=dev),
+                }
+                for j, bt in enumerate(st.pattern)
+            }
+        return cache
+
+    def cache_axes(self) -> dict:
+        """Tree of logical-axes tuples parallel to :meth:`init_cache`."""
+        axes = {
+            "k": ("layers", "batch", None, "kv_heads", None),
+            "v": ("layers", "batch", None, "kv_heads", None),
+            "pos": ("layers", None),
+        }
+        return {
+            f"stack{i}": {f"b{j}_{bt}": dict(axes) for j, bt in enumerate(st.pattern)}
+            for i, st in enumerate(self.stacks)
+        }
+
+    def _layer_caches(self, cache: dict) -> list[dict]:
+        """Per-layer views ``{"k", "v", "pos"}`` into the stacked cache, in
+        the order of ``self.layers``."""
+        out = []
+        for i, st in enumerate(self.stacks):
+            sc = cache[f"stack{i}"]
+            for r in range(st.repeats):
+                for j, bt in enumerate(st.pattern):
+                    out.append({name: leaf[r] for name, leaf in sc[f"b{j}_{bt}"].items()})
+        return out
+
+    def _decode_attn(self, ap: dict, x: torch.Tensor, lc: dict, position: int):
+        """Single-token attention over the ``pos``-tagged cache slots;
+        writes ``lc`` in place.  (The reference's ring-buffer slot and
+        window serve ``local_attn``, which the port does not run yet.)"""
+        cfg = self.cfg
+        q, k_new, v_new = attn_mod._qkv(ap, x, cfg)
+        if cfg.pos_kind != "none":
+            pos = torch.tensor([position], dtype=torch.int32, device=x.device)
+            sin, cos = rope_tables(pos, cfg.head_dim_, cfg.rope_theta)
+            q = attn_mod.apply_rope(q, sin, cos)
+            k_new = attn_mod.apply_rope(k_new, sin, cos)
+        # lax.dynamic_update_slice clamps the slot into the buffer
+        slot = min(max(position, 0), lc["k"].shape[1] - 1)
+        lc["k"][:, slot] = k_new[:, 0]
+        lc["v"][:, slot] = v_new[:, 0]
+        lc["pos"][slot] = position
+        posbuf = lc["pos"]
+        valid = (posbuf >= 0) & (posbuf <= position)
+        out = attn_mod._attend_cache(q, lc["k"], lc["v"], valid, cfg, x.dtype)
+        return out @ ap["wo"], lc
+
+    def decode_step(
+        self,
+        cache: dict,
+        tokens: torch.Tensor,  # (B,) int
+        position: int,
+    ) -> tuple[torch.Tensor, dict]:
+        """One autoregressive step: logits for the next token; the cache is
+        updated in place and returned."""
+        cfg = self.cfg
+        position = int(position)
+        top, layers = self._params()
+        x = self._embed_in(top, tokens[:, None], None)
+        for bp, lc in zip(layers, self._layer_caches(cache)):
+            h = rmsnorm(x, bp["norm1"], cfg.norm_eps)
+            out, _ = self._decode_attn(bp["attn"], h, lc, position)
+            x = x + out
+            h2 = rmsnorm(x, bp["norm2"], cfg.norm_eps)
+            x = x + mlp(bp["mlp"], h2, cfg.activation)
+        return self._head(top, x)[:, 0], cache
+
+    def prefill(self, tokens: torch.Tensor, max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+        """One pass over the prompt filling the cache; returns
+        (last-token logits (B,V), cache)."""
+        B, S = tokens.shape
+        max_len = max_len or S
+        assert max_len >= S
+        top, layers = self._params()
+        x = self._embed_in(top, tokens, None)
+        rope = self._rope_for(None, S)
+        cache = self.init_cache(B, max_len)
+        x = self._forward_filling(layers, x, rope, cache)
+        return self._head(top, x[:, -1:])[:, 0], cache
+
+    def _forward_filling(self, layers: list[dict], x: torch.Tensor, rope, cache: dict) -> torch.Tensor:
+        """Forward pass that also writes each layer's cache entry."""
+        for bp, lc in zip(layers, self._layer_caches(cache)):
+            x = self._block(bp, x, rope, lc)
+        return x
+
+
+def _fill_layer_cache(lc: dict, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write a prompt's k/v (B, S, KV, hd) into one layer's cache views."""
+    S = k.shape[1]
+    L = lc["k"].shape[1]
+    if L <= S:
+        # exactly-sized cache: keep the last L entries
+        lc["k"].copy_(k[:, -L:])
+        lc["v"].copy_(v[:, -L:])
+        lc["pos"].copy_(torch.arange(S - L, S, dtype=torch.int32, device=k.device))
+    else:
+        # head-room for decode: prompt in slots [0, S); the rest stays 0 / -1
+        lc["k"][:, :S] = k
+        lc["v"][:, :S] = v
+        lc["pos"][:S] = torch.arange(S, dtype=torch.int32, device=k.device)
+
+
+def _index(tree, r: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+@torch.no_grad()
+def params_from_jax(lm: LM, params: dict) -> LM:
+    """Load the reference ``LM.init`` tree into ``lm``.
+
+    ``params`` is that tree with numpy leaves (``jax.tree.map(np.asarray,
+    ...)``): ``stack{i}`` leaves carry a leading ``layers`` axis and
+    weights are stored ``(in, out)``, the orientation the port keeps, so
+    nothing is transposed.  Each leaf goes through float32 numpy (lossless
+    for bf16) and is cast to the parameter's dtype.  Every parameter must
+    be given, with its exact shape.
+    """
+    top, layers = lm._params()
+
+    def load(dst: dict, src: dict, where: str) -> None:
+        if set(dst) != set(src):
+            raise ValueError(f"{where}: port keys {sorted(dst)} != given {sorted(src)}")
+        for k in dst:
+            if isinstance(dst[k], dict):
+                load(dst[k], src[k], f"{where}/{k}")
+                continue
+            arr = np.asarray(src[k])
+            if tuple(arr.shape) != tuple(dst[k].shape):
+                raise ValueError(f"{where}/{k}: shape {arr.shape} != {tuple(dst[k].shape)}")
+            dst[k].copy_(torch.from_numpy(arr.astype(np.float32)))
+
+    stacks = {f"stack{i}" for i in range(len(lm.stacks))}
+    load(top, {k: v for k, v in params.items() if k not in stacks}, "")
+    n = 0
+    for i, st in enumerate(lm.stacks):
+        sp = params[f"stack{i}"]
+        for r in range(st.repeats):
+            for j, bt in enumerate(st.pattern):
+                load(layers[n], _index(sp[f"b{j}_{bt}"], r), f"stack{i}[{r}]/b{j}_{bt}")
+                n += 1
+    return lm

@@ -1,0 +1,233 @@
+"""Batched serving engine: slot-based continuous batching (lite) — in PyTorch.
+
+The port of ``repro.serving.engine``, behaviour for behaviour:
+
+* Requests queue up; the engine packs up to ``batch_slots`` prompts,
+  left-pads them with token 0 (no pad mask) to a common prefill length,
+  prefills once, then decodes all slots in lock-step with per-slot stop
+  handling.
+* Finished slots are refilled from the queue between decode steps: a new
+  request re-prefills as a single row, left-padded to the lock-step
+  position, and is merged into its row of the shared cache by
+  ``model.cache_axes()``.  A queued prompt longer than the current
+  position parks in ``_pending`` and opens the next batch instead.
+* A request that hits ``max_len`` before ``max_new_tokens`` is returned
+  with ``truncated=True`` and a :class:`TruncationWarning`.
+* Greedy or temperature sampling on the host, from
+  ``np.random.default_rng(rng_seed)``, so sampled runs draw the
+  reference's numbers.
+
+The model is a :class:`repro_torch.models.LM`, which holds its own
+parameters and device (the card unless it was built with
+``device="cpu"``).  The engine runs under ``torch.inference_mode()``;
+the cache is updated in place.
+"""
+
+from __future__ import annotations
+
+import queue
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.models import LM
+from repro_torch.obs.log import MatchWarning
+from repro_torch.obs.log import warn as obs_warn
+
+__all__ = ["Request", "ServeEngine", "TruncationWarning"]
+
+
+class TruncationWarning(MatchWarning):
+    """A request ran out of cache headroom (``pos >= max_len``) before
+    producing ``max_new_tokens``; its ``truncated`` flag is set."""
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # (S,) int32
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    out_tokens: list[int] = field(default_factory=list)
+    done: bool = False
+    truncated: bool = False
+
+
+def _leaves(tree) -> list:
+    """Leaves of a nested dict in sorted key order (the reference's
+    pytree order); tuples are leaves."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+class ServeEngine:
+    def __init__(
+        self,
+        model: LM,
+        *,
+        batch_slots: int = 4,
+        max_len: int = 256,
+        rng_seed: int = 0,
+    ):
+        self.model = model
+        self.batch_slots = batch_slots
+        self.max_len = max_len
+        self.rng = np.random.default_rng(rng_seed)
+        self._queue: "queue.Queue[Request]" = queue.Queue()
+        self._pending: list[Request] = []  # popped but not yet slotted
+        # serving counters: decode iterations paid and slots recycled
+        self.decode_steps = 0
+        self.refills = 0
+
+    def submit(self, req: Request) -> None:
+        self._queue.put(req)
+
+    def _pop(self) -> Request | None:
+        """One queued request, or None — never empty()-then-get(): with
+        concurrent submitters the queue can drain between the two calls,
+        and get() would then block forever."""
+        try:
+            return self._queue.get_nowait()
+        except queue.Empty:
+            return None
+
+    def _take_batch(self) -> list[Request]:
+        out = self._pending[: self.batch_slots]
+        del self._pending[: len(out)]
+        while len(out) < self.batch_slots:
+            r = self._pop()
+            if r is None:
+                break
+            out.append(r)
+        return out
+
+    def _next_fitting(self, pos: int) -> Request | None:
+        """A waiting request whose prompt fits the lock-step position
+        (left-padded to width ``pos``); longer prompts park in
+        ``_pending`` for the next batch."""
+        for j, r in enumerate(self._pending):
+            if len(r.prompt) <= pos:
+                return self._pending.pop(j)
+        while True:
+            r = self._pop()
+            if r is None:
+                return None
+            if len(r.prompt) <= pos:
+                return r
+            self._pending.append(r)
+
+    def run(self) -> list[Request]:
+        """Serve everything currently queued; returns finished requests."""
+        finished: list[Request] = []
+        with torch.inference_mode():
+            while True:
+                batch = self._take_batch()
+                if not batch:
+                    return finished
+                finished.extend(self._serve_batch(batch))
+
+    def _tokens(self, toks: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(toks, np.int64)).to(self.model.device)
+
+    # -- single-row prefill path (slot refill) --------------------------
+    def _merge_row(self, cache, row_cache, i: int):
+        """Write ``row_cache`` (batch 1) into row ``i`` of the shared
+        cache, in place.  Batch rows are independent everywhere except the
+        position-count leaves, which carry no batch axis and agree by
+        construction (both covers span positions ``0..pos-1``)."""
+        axes = self.model.cache_axes()
+        for leaf, row_leaf, ax in zip(_leaves(cache), _leaves(row_cache), _leaves(axes)):
+            if "batch" in ax:
+                b = ax.index("batch")
+                leaf[(slice(None),) * b + (i,)] = row_leaf.select(b, 0)
+        return cache
+
+    def _refill_slot(self, req: Request, i: int, pos: int, cache):
+        """Prefill ``req`` as a single row (left-padded to the lock-step
+        width ``pos``), splice it into slot ``i``, and return its first
+        sampled token plus the updated cache."""
+        row = np.zeros((1, pos), np.int32)
+        row[0, pos - len(req.prompt) :] = req.prompt
+        logits, row_cache = self.model.prefill(self._tokens(row), max_len=self.max_len)
+        cache = self._merge_row(cache, row_cache, i)
+        tok = int(self._sample(logits, [req])[0])
+        self.refills += 1
+        return tok, cache
+
+    def _serve_batch(self, reqs: list[Request]) -> list[Request]:
+        B = len(reqs)
+        plen = max(len(r.prompt) for r in reqs)
+        # left-pad with token 0; positions still 0..plen-1 (pad tokens
+        # attend causally; there is no pad mask, as in the reference)
+        toks = np.zeros((B, plen), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, plen - len(r.prompt) :] = r.prompt
+
+        logits, cache = self.model.prefill(self._tokens(toks), max_len=self.max_len)
+        pos = plen
+        slots = list(reqs)
+        live = [True] * B
+        served: list[Request] = []
+        cur = self._sample(logits, slots)
+        for i, r in enumerate(slots):
+            r.out_tokens.append(int(cur[i]))
+
+        while True:
+            # retire finished slots and refill them from the queue before
+            # paying the next lock-step decode; fixpoint, because a
+            # refilled request can itself already be satisfied
+            changed = True
+            while changed:
+                changed = False
+                for i, r in enumerate(slots):
+                    if live[i] and len(r.out_tokens) >= r.max_new_tokens:
+                        live[i] = False
+                        r.done = True
+                        served.append(r)
+                        changed = True
+                        if pos < self.max_len:
+                            nxt = self._next_fitting(pos)
+                            if nxt is not None:
+                                tok, cache = self._refill_slot(nxt, i, pos, cache)
+                                slots[i] = nxt
+                                live[i] = True
+                                cur[i] = tok
+                                nxt.out_tokens.append(tok)
+            if not any(live):
+                return served
+            if pos >= self.max_len:
+                trunc = [slots[i].rid for i in range(B) if live[i]]
+                for i in range(B):
+                    if live[i]:
+                        slots[i].truncated = True
+                        slots[i].done = True
+                        served.append(slots[i])
+                obs_warn(
+                    f"requests {trunc} hit max_len={self.max_len} at "
+                    f"position {pos} before max_new_tokens; returned "
+                    "truncated (raise max_len or shorten prompts)",
+                    TruncationWarning,
+                )
+                return served
+            logits, cache = self.model.decode_step(cache, self._tokens(cur), pos)
+            self.decode_steps += 1
+            cur = self._sample(logits, slots)
+            pos += 1
+            for i, r in enumerate(slots):
+                if live[i] and len(r.out_tokens) < r.max_new_tokens:
+                    r.out_tokens.append(int(cur[i]))
+
+    def _sample(self, logits: torch.Tensor, reqs: list[Request]) -> np.ndarray:
+        lg = logits.float().cpu().numpy()
+        out = np.zeros(len(reqs), np.int32)
+        for i, r in enumerate(reqs):
+            if r.temperature <= 0:
+                out[i] = int(np.argmax(lg[i]))
+            else:
+                p = lg[i] / r.temperature
+                p = np.exp(p - p.max())
+                p /= p.sum()
+                out[i] = int(self.rng.choice(len(p), p=p))
+        return out

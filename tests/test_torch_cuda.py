@@ -1,5 +1,6 @@
-"""The port on the CUDA card: the Hopper kernel against its plain version,
-and one net through the main path bit-exact.  Marked ``cuda``; without a
+"""The port on the CUDA card: the Hopper kernels against their plain
+versions, one net through the CNN main path bit-exact, and a 2-layer LM
+whose prefill goes through the flash kernel.  Marked ``cuda``; without a
 card each test skips (decided inside the fixture, never at import)."""
 
 import numpy as np
@@ -9,7 +10,9 @@ import torch
 from repro_torch.backend import lower
 from repro_torch.cnn import execute_graph, init_graph_params, mlperf_tiny_networks, params_to_torch
 from repro_torch.core import dispatch
-from repro_torch.kernels import matmul_requant, matmul_requant_plain
+from repro_torch.configs import get_smoke
+from repro_torch.kernels import flash_attention, flash_attention_plain, matmul_requant, matmul_requant_plain
+from repro_torch.models import LM
 
 pytestmark = pytest.mark.cuda
 
@@ -67,3 +70,72 @@ def test_dscnn_main_path_bit_exact_on_card(cuda):
         assert out[k].device.type == "cuda"
         assert torch.equal(out[k].cpu(), ref[k])
     assert cm.verify(params, x, per_segment=True).exact
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_GRID = [(1, 4, 4, 64, 64, 32), (2, 8, 2, 128, 128, 64), (1, 6, 1, 96, 96, 16), (4, 16, 2, 24, 24, 128),
+              (1, 4, 2, 37, 37, 256), (2, 4, 1, 5, 5, 24)]
+
+
+def _qkv(cuda, B, H, KV, Sq, Sk, D, dtype, seed, bshd=False):
+    rng = np.random.default_rng(seed)
+    if bshd:  # (B, S, H, D) storage handed over as (B, H, S, D) views
+        mk = lambda s: torch.from_numpy(rng.normal(size=(s[0], s[2], s[1], s[3])).astype(np.float32)).transpose(1, 2)
+    else:
+        mk = lambda s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    return [mk(s).to(cuda, dtype) for s in ((B, H, Sq, D), (B, KV, Sk, D), (B, KV, Sk, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D", FLASH_GRID)
+def test_flash_kernel_matches_plain_version(cuda, B, H, KV, Sq, Sk, D, causal, dtype):
+    q, k, v = _qkv(cuda, B, H, KV, Sq, Sk, D, dtype, seed=Sq * D, bshd=D == 128)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.stride() == q.stride()
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize(
+    "Sq,Sk,q_offset,causal,window",
+    [(16, 64, 48, True, None), (64, 64, 0, True, 16), (32, 64, 32, True, 8), (64, 64, 0, False, 24),
+     (8, 32, 100, True, 4), (1, 200, 199, True, None), (40, 300, 260, True, 70)],
+)
+def test_flash_kernel_offset_and_window(cuda, Sq, Sk, q_offset, causal, window):
+    q, k, v = _qkv(cuda, 2, 4, 2, Sq, Sk, 32, torch.float32, seed=Sq + Sk)
+    got = flash_attention(q, k, v, causal=causal, q_offset=q_offset, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, window=window)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_kernel_rejects_mixed_dtypes_and_devices(cuda):
+    q = torch.zeros((1, 2, 4, 16), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        flash_attention(q, q.cpu(), q)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "gemma_7b"])
+def test_two_layer_lm_prefill_launches_flash_per_layer(cuda, arch):
+    cfg = get_smoke(arch).replace(n_layers=2, dtype="float32")
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0)).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (3, 9)))
+    before = flash_attention.launches
+    with torch.inference_mode():
+        lg, cache = gpu.prefill(toks.to(cuda), max_len=16)
+        assert flash_attention.launches - before == cfg.n_layers
+        want, want_cache = cpu.prefill(toks, max_len=16)
+        torch.testing.assert_close(lg.cpu(), want, atol=1e-3, rtol=1e-3)
+        for t in range(3):
+            nxt = want.argmax(-1)
+            assert torch.equal(lg.argmax(-1).cpu(), nxt)
+            lg, cache = gpu.decode_step(cache, nxt.to(cuda), 9 + t)
+            want, want_cache = cpu.decode_step(want_cache, nxt, 9 + t)
+            torch.testing.assert_close(lg.cpu(), want, atol=1e-3, rtol=1e-3)
+    assert flash_attention.launches - before == cfg.n_layers  # decode attention is plain torch

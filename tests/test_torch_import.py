@@ -13,7 +13,10 @@ import torch
 from repro_torch.backend import lower
 from repro_torch.cnn import conv_block_graph, execute_graph
 from repro_torch.core import dispatch
+from repro_torch.configs import get_smoke
 from repro_torch.kernels import matmul_requant
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import LM
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -27,14 +30,28 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "
 print(len(names), leaked)
 assert not leaked, leaked
 assert {"repro_torch.backend.lower", "repro_torch.kernels.matmul_requant",
-        "repro_torch.obs.trace", "repro_torch.targets.registry"} <= set(names)
+        "repro_torch.obs.trace", "repro_torch.targets.registry",
+        "repro_torch.kernels.flash_attention", "repro_torch.models.transformer",
+        "repro_torch.configs.qwen2_5_3b", "repro_torch.serving.engine",
+        "repro_torch.launch.serve", "repro_torch.pipeline.schedule",
+        "repro_torch.calibrate.profile"} <= set(names)
+"""
+
+# the slice-2 entry points, each imported alone in a fresh interpreter
+_ENTRY_PROBE = """
+import sys
+import repro_torch.models, repro_torch.serving, repro_torch.launch.serve
+import repro_torch.configs, repro_torch.pipeline, repro_torch.calibrate
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
 """
 
 
-def test_import_loads_no_jax_and_no_reference():
+@pytest.mark.parametrize("probe", [_PROBE, _ENTRY_PROBE], ids=["every-module", "lm-entry-points"])
+def test_import_loads_no_jax_and_no_reference(probe):
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run(
-        [sys.executable, "-c", _PROBE], env=env, capture_output=True, text=True, timeout=120
+        [sys.executable, "-c", probe], env=env, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
@@ -86,3 +103,20 @@ def test_matmul_requant_on_cpu_does_not_count_launches():
     out = matmul_requant(a, w, torch.ones(4, dtype=torch.int32), torch.zeros(4, dtype=torch.int32), shift=0)
     assert out.tolist() == [[8, 8, 8, 8]]
     assert matmul_requant.launches == before
+
+
+def test_lm_defaults_to_cuda_and_raises_without_card():
+    _no_card()
+    cfg = get_smoke("qwen2_5_3b")
+    with pytest.raises((AssertionError, RuntimeError)):
+        LM(cfg)
+    assert LM(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_serve_engine_and_cli_default_to_cuda_and_raise_without_card():
+    _no_card()
+    with pytest.raises((AssertionError, RuntimeError)):
+        serve_cli.build_engine(get_smoke("qwen2_5_3b"))
+    with pytest.raises((AssertionError, RuntimeError)):
+        serve_cli.main(["--arch", "qwen2_5_3b", "--smoke"])
+    assert serve_cli.build_engine(get_smoke("qwen2_5_3b"), "cpu").model.device == torch.device("cpu")
