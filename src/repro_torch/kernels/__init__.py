@@ -8,17 +8,26 @@
   (causal, sliding window, ``q_offset``), a hand-written CUDA kernel
   (``csrc/flash_attention.cu``) in place of the reference's Pallas
   kernel, with :func:`flash_attention_plain` beside it;
+* :func:`moe_gmm` — the MoE grouped expert GEMM, a hand-written CUDA
+  kernel (``csrc/moe_gmm.cu``) in place of the reference's Pallas kernel,
+  with :func:`moe_gmm_plain` beside it;
+* :func:`ssd_scan` — the Mamba-2 SSD chunk scan with a carried state
+  (returning the final state too), a hand-written CUDA kernel
+  (``csrc/ssd_scan.cu``) in place of the reference's Pallas kernel, with
+  :func:`ssd_scan_plain` beside it;
 * :func:`tiled_conv2d` — the banded SAME conv (plain ``F.conv2d`` per
   band, as the reference's is plain ``lax.conv_general_dilated``);
 * :mod:`.ref` — plain torch oracles.
 
-The reference's other LM kernels (MoE grouped GEMM, SSD and RG-LRU
-scans) are not ported yet.
+The reference's last Pallas kernel, the RG-LRU scan, is not ported yet
+(ROADMAP B5).
 """
 
 from . import ref
 from .flash_attention import flash_attention, flash_attention_plain
 from .matmul_requant import matmul_requant, matmul_requant_plain
+from .moe_gmm import moe_gmm, moe_gmm_plain
+from .ssd_scan import ssd_scan, ssd_scan_plain
 from .tiled_conv import tiled_conv2d
 
 __all__ = [
@@ -27,5 +36,9 @@ __all__ = [
     "flash_attention_plain",
     "matmul_requant",
     "matmul_requant_plain",
+    "moe_gmm",
+    "moe_gmm_plain",
+    "ssd_scan",
+    "ssd_scan_plain",
     "tiled_conv2d",
 ]

@@ -1,7 +1,7 @@
 """Plain torch oracles for the port's kernels (allclose / equality targets).
 
 The port of ``repro.kernels.ref``; the oracles of the kernels this
-package has so far.
+package has so far (``rglru_scan_ref`` comes with the RG-LRU slice).
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ import math
 
 import torch
 
-__all__ = ["matmul_requant_ref", "flash_attention_ref"]
+__all__ = ["matmul_requant_ref", "flash_attention_ref", "moe_gmm_ref", "ssd_scan_ref"]
 
 
 def matmul_requant_ref(a, w, mult, bias, *, shift: int = 8, relu: bool = False):
@@ -38,3 +38,23 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     return o.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def moe_gmm_ref(x, w):
+    """y[e] = x[e] @ w[e] in fp32, returned in x's dtype.  x (E, C, D), w (E, D, F)."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def ssd_scan_ref(xb, a, Bm, Cm):
+    """Sequential state-space oracle: h_t = e^{a_t} h_{t-1} + xb_t B_t^T,
+    y_t = h_t C_t.  xb (B, H, T, P), a (B, H, T), Bm/Cm (B, T, N) ->
+    y (B, H, T, P) float32."""
+    B, H, T, P = xb.shape
+    N = Bm.shape[-1]
+    xf, af, bf, cf = xb.float(), a.float(), Bm.float(), Cm.float()
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=xb.device)
+    ys = []
+    for t in range(T):
+        h = torch.exp(af[:, :, t])[..., None, None] * h + torch.einsum("bhp,bn->bhpn", xf[:, :, t], bf[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", h, cf[:, t]))
+    return torch.stack(ys, dim=2)

@@ -1,0 +1,180 @@
+"""Mamba-2 SSD chunk scan with a carried state — the Hopper kernel.
+
+Port of the Pallas TPU kernel ``repro.kernels.ssd_scan`` (``_kernel``):
+the state-space recurrence ``h_t = e^{a_t} h_{t-1} + xb_t B_t^T``,
+``y_t = h_t C_t`` per (batch, head), computed chunk by chunk in its dual
+form with the ``(P, N)`` state carried across chunks.
+
+* xb ``(B, H, T, P)`` (x pre-scaled by dt) and a ``(B, H, T)`` (dt * A,
+  <= 0) in float32; Bm, Cm ``(B, T, N)`` in float32 or bfloat16.
+* Returns ``(y (B, H, T, P), h_final (B, H, P, N))``, both float32.  The
+  final state is the one addition to the Pallas kernel's signature: the
+  reference model's ``ssd_chunked_ref`` returns it, and prefill writes it
+  to the cache.
+
+On a CUDA tensor :func:`ssd_scan` launches the hand-written CUDA kernel
+in ``csrc/ssd_scan.cu`` (built for ``sm_90a`` at first use, see
+:mod:`repro_torch.kernels._build`); on a CPU tensor it computes
+:func:`ssd_scan_plain`, the reference model's chunked algorithm
+(``repro.models.ssd.ssd_chunked_ref``) in plain torch.  There is no
+fallback between the two: a CUDA call launches or raises.
+
+The kernel replaces ``src/repro/kernels/ssd_scan.py::_kernel``.  At the
+serving prefill it is bound about equally by the bytes of the final state
+and by its fp32 flops; this first version runs the chunk products as fp32
+FMA on the CUDA cores and is built to be right — the source says what its
+design does and what it leaves for later.  It takes any T (the Pallas
+kernel asserts exact tiling; its chunk length is its own, 32 rows) and
+reads every operand through its strides, so the model passes its
+``(B, T, H, P)`` activations as ``(B, H, T, P)`` views without a copy.  y
+takes xb's memory layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+__all__ = ["ssd_scan", "ssd_scan_plain"]
+
+_SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
+_GRID_Y_MAX = 65535
+
+
+def _check_args(xb, a, Bm, Cm) -> None:
+    if xb.dim() != 4 or a.dim() != 3 or Bm.dim() != 3 or Cm.dim() != 3:
+        raise ValueError("need xb (B, H, T, P), a (B, H, T), Bm and Cm (B, T, N)")
+    B, H, T, _ = xb.shape
+    if tuple(a.shape) != (B, H, T) or Bm.shape != Cm.shape or tuple(Bm.shape[:2]) != (B, T):
+        raise ValueError(
+            f"need xb (B, H, T, P), a (B, H, T), Bm and Cm (B, T, N), got {tuple(xb.shape)}, "
+            f"{tuple(a.shape)}, {tuple(Bm.shape)}, {tuple(Cm.shape)}"
+        )
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """(..., L) -> (..., L, L) with out[i,j] = sum_{j<k<=i} x[k], -inf above the diagonal."""
+    L = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    return seg.masked_fill(~mask, -torch.inf)
+
+
+def ssd_scan_plain(
+    xb: torch.Tensor,  # (B, H, T, P)
+    a: torch.Tensor,  # (B, H, T)
+    Bm: torch.Tensor,  # (B, T, N)
+    Cm: torch.Tensor,  # (B, T, N)
+    *,
+    chunk: int = 128,
+    init_state: torch.Tensor | None = None,  # (B, H, P, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain torch, on any device: the reference
+    model's chunked SSD (intra-chunk quadratic term, chunk-final states,
+    inter-chunk recurrence, state contribution), in fp32, in the kernel's
+    (B, H, T, P) layout.  A ragged last chunk is padded with zeros and
+    ``a = 0``, which changes neither y nor the final state.  Returns
+    ``(y (B, H, T, P), final_state (B, H, P, N))``."""
+    _check_args(xb, a, Bm, Cm)
+    Bsz, H, T, P = xb.shape
+    N = Bm.shape[-1]
+    L = max(1, min(chunk, T))
+    pad = (-T) % L
+    nc = (T + pad) // L
+    xf = torch.nn.functional.pad(xb.float(), (0, 0, 0, pad)).reshape(Bsz, H, nc, L, P)
+    af = torch.nn.functional.pad(a.float(), (0, pad)).reshape(Bsz, H, nc, L)
+    Bc = torch.nn.functional.pad(Bm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, L, N)
+    Cc = torch.nn.functional.pad(Cm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, L, N)
+
+    a_cs = torch.cumsum(af, dim=-1)  # (B, H, c, l)
+    Lmat = torch.exp(_segsum(af))  # (B, H, c, l, l)
+
+    # 1) intra-chunk (diagonal blocks)
+    scores = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
+    y_diag = torch.einsum("bcls,bhcls,bhcsp->bhclp", scores, Lmat, xf)
+
+    # 2) chunk-final states
+    decay_states = torch.exp(a_cs[..., -1:] - a_cs)  # (B, H, c, l)
+    states = torch.einsum("bcln,bhcl,bhclp->bhcpn", Bc, decay_states, xf)
+
+    # 3) inter-chunk recurrence over chunk states
+    if init_state is None:
+        init_state = torch.zeros_like(states[:, :, 0])
+    states = torch.cat([init_state.float()[:, :, None], states], dim=2)  # (B, H, c+1, P, N)
+    chunk_decay = torch.nn.functional.pad(a_cs[..., -1], (1, 0))  # (B, H, c+1)
+    dc = torch.exp(_segsum(chunk_decay))  # (B, H, c+1, c+1)
+    new_states = torch.einsum("bhzc,bhcpn->bhzpn", dc, states)
+    prev_states, final_state = new_states[:, :, :-1], new_states[:, :, -1]
+
+    # 4) inter-chunk contribution to outputs
+    y_off = torch.einsum("bcln,bhcpn,bhcl->bhclp", Cc, prev_states, torch.exp(a_cs))
+
+    y = (y_diag + y_off).reshape(Bsz, H, nc * L, P)[:, :, :T]
+    return y, final_state
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("ssd_scan")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, *([ll] * 17), p]
+    lib.ssd_scan_launch.restype = ctypes.c_int
+    lib.ssd_scan_smem_bytes.argtypes = [i, i]
+    lib.ssd_scan_smem_bytes.restype = ll
+    return lib
+
+
+def ssd_scan(
+    xb: torch.Tensor,  # (B, H, T, P)
+    a: torch.Tensor,  # (B, H, T)
+    Bm: torch.Tensor,  # (B, T, N)
+    Cm: torch.Tensor,  # (B, T, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(y (B, H, T, P), h_final (B, H, P, N))``, both float32.
+
+    CUDA tensors launch the Hopper kernel (counted in
+    ``ssd_scan.launches``); CPU tensors take :func:`ssd_scan_plain`.
+    """
+    if xb.device.type == "cpu":
+        return ssd_scan_plain(xb, a, Bm, Cm)
+    _check_args(xb, a, Bm, Cm)
+    if xb.device.type != "cuda" or any(t.device != xb.device for t in (a, Bm, Cm)):
+        raise ValueError(
+            f"ssd_scan needs xb, a, Bm, Cm on one CUDA device, got {[str(t.device) for t in (xb, a, Bm, Cm)]}"
+        )
+    if xb.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"xb and a must be float32, got {xb.dtype}, {a.dtype}")
+    if Bm.dtype not in (torch.float32, torch.bfloat16) or Cm.dtype != Bm.dtype:
+        raise TypeError(f"Bm and Cm must both be float32 or both bfloat16, got {Bm.dtype}, {Cm.dtype}")
+    B, H, T, P = xb.shape
+    N = Bm.shape[-1]
+    y = torch.empty_like(xb)  # xb's layout: a (B, T, H, P) view stays one
+    h_final = torch.empty((B, H, P, N), dtype=torch.float32, device=xb.device)
+    if B == 0 or H == 0 or P == 0 or N == 0:
+        h_final.zero_()
+        return y, h_final
+    if B > _GRID_Y_MAX:
+        raise ValueError(f"B={B} must be <= {_GRID_Y_MAX} (grid limit)")
+    lib = _lib()
+    smem = lib.ssd_scan_smem_bytes(P, N)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"P={P}, N={N} need {smem} bytes of shared memory per block, over {_SMEM_MAX}")
+    with torch.cuda.device(xb.device):
+        err = lib.ssd_scan_launch(
+            xb.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), h_final.data_ptr(),
+            int(Bm.dtype == torch.bfloat16), B, H, T, P, N,
+            *xb.stride(), *a.stride(), *Bm.stride(), *Cm.stride(), *y.stride(),
+            torch.cuda.current_stream(xb.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
+    ssd_scan.launches += 1
+    return y, h_final
+
+
+ssd_scan.launches = 0

@@ -1,0 +1,118 @@
+"""Token-choice top-k MoE with capacity — in PyTorch.
+
+The port of ``repro.models.moe``: the reference's routing step for step,
+and its default formulation (``moe_dispatch="token"``,
+``moe_combine="gather"``), whose alternatives compute the same function
+(``tests/test_moe_properties.py``).
+
+* Router product in fp32; K rounds of max / first-index argmax over the
+  remaining probabilities; a capacity position from a cumulative sum over
+  the sequence, per batch row (the group is the batch row); a token is
+  kept where its position is below the capacity ``C``, and the kept gates
+  are renormalised by ``max(sum, 1e-9)``.
+* Dispatch gathers the kept (token, k) rows straight into expert-major
+  order ``(E, B*C, D)``: the batch rows are folded into the kernel's
+  capacity axis, so nothing is transposed.  Slots that no token fills
+  hold zeros (the reference fills them with a clipped token's row); no
+  output reads them.
+* The three expert products run through :func:`repro_torch.kernels.moe_gmm`
+  (the hand-written CUDA kernel on the card), where the reference has
+  ``jnp.einsum``.
+* Combine gathers each token's K slots back through one zero pad row, so
+  dropped tokens contribute zero, and sums them weighted by their gates.
+* The Switch/GShard load-balancing aux loss.
+
+The port does not shard: the reference's ``constrain`` calls are dropped.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ParamSpec
+
+__all__ = ["moe_params", "moe_ffn", "moe_capacity"]
+
+
+def moe_params(cfg: ModelConfig) -> dict:
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    return {
+        "router": ParamSpec((d, e), ("embed", None), "float32", scale=0.1),
+        "wi_gate": ParamSpec((e, d, f), ("experts", "embed", "moe_ffn"), cfg.dtype),
+        "wi_up": ParamSpec((e, d, f), ("experts", "embed", "moe_ffn"), cfg.dtype),
+        "wo": ParamSpec((e, f, d), ("experts", "moe_ffn", "embed"), cfg.dtype),
+    }
+
+
+def moe_capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    c = math.ceil(tokens_per_group * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)  # pad to sublane multiple
+
+
+def _route(probs: torch.Tensor, K: int, C: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing with per-expert capacity: (slots, gates), each
+    (B, S, K).  A slot is ``expert * C + position`` or -1 (dropped)."""
+    B, S, E = probs.shape
+    remaining = probs
+    counts = torch.zeros((B, E), dtype=torch.int32, device=probs.device)
+    slots, gates = [], []
+    for _ in range(K):
+        gate = remaining.amax(dim=-1)  # (B, S)
+        idx = remaining.argmax(dim=-1)  # first index on ties, as jnp.argmax
+        oh = F.one_hot(idx, E).to(torch.int32)  # (B, S, E)
+        pos = torch.cumsum(oh, dim=1, dtype=torch.int32) - 1 + counts[:, None, :]
+        counts = counts + oh.sum(dim=1, dtype=torch.int32)
+        my_pos = (pos * oh).sum(dim=-1, dtype=torch.int32)  # (B, S)
+        keep = my_pos < C
+        slots.append(torch.where(keep, idx.to(torch.int32) * C + my_pos, -1))
+        gates.append(torch.where(keep, gate, torch.zeros_like(gate)))
+        remaining = remaining * (1 - oh.to(remaining.dtype))
+    slots_t = torch.stack(slots, dim=-1)
+    gates_t = torch.stack(gates, dim=-1)
+    gates_t = gates_t / torch.clamp_min(gates_t.sum(dim=-1, keepdim=True), 1e-9)
+    return slots_t, gates_t
+
+
+def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y, aux_loss).  Group = batch row (standard)."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = moe_capacity(cfg, S)
+
+    logits = x.float() @ params["router"]  # (B, S, E)
+    probs = torch.softmax(logits, dim=-1)
+    slots, gates = _route(probs, K, C)
+
+    # ---- dispatch: rows of (x | zero pad row) gathered in (E, B, C) order --
+    kept = slots >= 0
+    e_idx, c_idx = torch.div(slots, C, rounding_mode="floor"), slots % C
+    b_idx = torch.arange(B, device=x.device)[:, None, None].expand(B, S, K)
+    s_idx = torch.arange(S, device=x.device)[None, :, None].expand(B, S, K)
+    dst = (e_idx * B + b_idx) * C + c_idx  # row of (E, B*C); every kept one is unique
+    src_for_slot = torch.full((E * B * C,), B * S, dtype=torch.int64, device=x.device)
+    src_for_slot[dst[kept].long()] = (b_idx * S + s_idx)[kept]
+    xpad = torch.cat([x.reshape(B * S, D), x.new_zeros((1, D))])
+    dispatched = xpad[src_for_slot].reshape(E, B * C, D)
+
+    # ---- expert computation (the only FLOP-heavy part) -------------------
+    g = moe_gmm(dispatched, params["wi_gate"])
+    u = moe_gmm(dispatched, params["wi_up"])
+    h = F.silu(g) * u
+    eo = moe_gmm(h, params["wo"]).reshape(E * B * C, D)
+
+    # ---- combine: each token's K slots back through one zero pad row -------
+    eo_pad = torch.cat([eo, eo.new_zeros((1, D))])
+    gather = torch.where(kept, dst, E * B * C).long()  # (B, S, K)
+    tok_out = eo_pad[gather]  # (B, S, K, D)
+    y = torch.sum(tok_out * gates[..., None].to(tok_out.dtype), dim=2).to(x.dtype)
+
+    # ---- load-balancing aux loss (Switch/GShard) --------------------------
+    me = probs.mean(dim=(0, 1))  # (E,)
+    ce = F.one_hot(logits.argmax(dim=-1), E).float().mean(dim=(0, 1))
+    aux = E * torch.sum(me * ce)
+    return y, aux

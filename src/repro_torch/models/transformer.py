@@ -1,10 +1,13 @@
-"""The LM for the dense ``attn`` architectures — in PyTorch.
+"""The LM for the ``attn`` (dense MLP or MoE) and ``ssd`` architectures — in PyTorch.
 
 The port of ``repro.models.transformer``.  One class, :class:`LM`, an
-``nn.Module`` holding its own parameters, for stacks of ``attn`` blocks
-with a dense MLP (gemma-7b, granite-34b, qwen2.5-3b, starcoder2-15b).
-The other block families raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+``nn.Module`` holding its own parameters, for stacks of
+* ``attn`` blocks with a dense MLP (gemma-7b, granite-34b, qwen2.5-3b,
+  starcoder2-15b) or a top-k MoE (granite-moe-3b-a800m, dbrx-132b), and
+* mamba2 ``ssd`` blocks, which carry no MLP (mamba2-1.3b).
+The other block families (RG-LRU, ``local_attn``), M-RoPE and the
+frontend stub raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 
 What changes against the reference:
 
@@ -13,16 +16,21 @@ What changes against the reference:
   parameters are the slices of the reference's stacked leaves.
   :meth:`LM.param_specs` and :meth:`LM.param_shapes` still describe the
   stacked tree, and :func:`params_from_jax` loads one into the module.
-* The cache keeps the reference's tree and layout: per stack
-  ``{"k", "v": (layers, B, S_max, KV, hd), "pos": (layers, S_max)}``
-  with the ring-buffer ``pos`` leaf.  ``prefill`` and ``decode_step``
-  write it in place (no copy of the cache per step) and return it.
+* The cache keeps the reference's tree and layout: per stack and
+  ``attn`` block ``{"k", "v": (layers, B, S_max, KV, hd), "pos":
+  (layers, S_max)}`` with the ring-buffer ``pos`` leaf; per ``ssd`` block
+  ``{"h": (layers, B, H, P, N) fp32, "conv_x", "conv_B", "conv_C":
+  (layers, B, conv-1, ...)}``.  ``prefill`` and ``decode_step`` write it
+  in place (no copy of the cache per step) and return it.
 * Prefill attention runs through the flash kernel
   (:func:`repro_torch.models.attention.attention_kv`) and reuses its k/v
-  for the cache, where the reference projects them a second time.
+  for the cache, where the reference projects them a second time.  The
+  MoE expert GEMMs run through the ``moe_gmm`` kernel
+  (:mod:`repro_torch.models.moe`), the SSD core of prefill and forward
+  through the ``ssd_scan`` kernel (:mod:`repro_torch.models.ssd`).
 
 Entry points:
-  forward(tokens | embeds)            -> (logits (B,S,V), aux)
+  forward(tokens | embeds)            -> (logits (B,S,V), MoE aux)
   prefill(tokens, max_len)            -> (last_logits (B,V), cache)
   decode_step(cache, tokens, position)-> (logits (B,V), cache)
 """
@@ -51,6 +59,8 @@ from repro_torch.models.layers import (
     spec_shapes,
     torch_dtype,
 )
+from repro_torch.models.moe import moe_ffn, moe_params
+from repro_torch.models.ssd import ssd_block, ssd_decode_step, ssd_params, ssd_state_init
 
 __all__ = ["LM", "StackSpec", "params_from_jax"]
 
@@ -81,13 +91,25 @@ def _stack_specs(specs, n: int):
     return map_specs(lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.dtype, s.init, s.scale), specs)
 
 
+# logical axes of each block type's cache leaves (the reference's)
+_CACHE_AXES = {
+    "attn": {
+        "k": ("layers", "batch", None, "kv_heads", None),
+        "v": ("layers", "batch", None, "kv_heads", None),
+        "pos": ("layers", None),
+    },
+    "ssd": {
+        "h": ("layers", "batch", "heads", None, None),
+        "conv_x": ("layers", "batch", None, "ffn"),
+        "conv_B": ("layers", "batch", None, None),
+        "conv_C": ("layers", "batch", None, None),
+    },
+}
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet, naming its ROADMAP item."""
     missing = []
-    if cfg.is_moe:
-        missing.append("MoE blocks with the moe_gmm kernel (ROADMAP A11/B3)")
-    if "ssd" in cfg.block_types:
-        missing.append("mamba2 SSD blocks with the ssd_scan kernel (ROADMAP A11/B4)")
     if "rglru" in cfg.block_types or "local_attn" in cfg.block_types:
         missing.append("recurrentgemma RG-LRU and local-attention blocks with the rglru_scan kernel (ROADMAP A11/B5)")
     if cfg.pos_kind == "mrope":
@@ -139,6 +161,8 @@ class LM(nn.Module):
                 for j, bt in enumerate(st.pattern):
                     layers.append(_Params(_index(stack[f"b{j}_{bt}"], r)))
         self.layers = nn.ModuleList(layers)
+        # the block type of each entry of self.layers
+        self.block_types = [bt for st in self.stacks for _ in range(st.repeats) for bt in st.pattern]
         self.top = _Params(tree)  # embed, final_norm (and lm_head)
 
     # ------------------------------------------------------------------
@@ -147,12 +171,17 @@ class LM(nn.Module):
     def _block_specs(self, btype: str) -> dict:
         cfg = self.cfg
         d = cfg.d_model
-        return {
-            "norm1": ParamSpec((d,), ("embed",), "float32", init="zeros"),
-            "attn": attn_mod.attention_params(cfg),
-            "norm2": ParamSpec((d,), ("embed",), "float32", init="zeros"),
-            "mlp": mlp_params(d, cfg.d_ff, cfg.activation, cfg.dtype),
-        }
+        out: dict[str, Any] = {"norm1": ParamSpec((d,), ("embed",), "float32", init="zeros")}
+        if btype == "ssd":
+            out["ssd"] = ssd_params(cfg)
+            return out  # mamba2 blocks carry no separate MLP
+        out["attn"] = attn_mod.attention_params(cfg)
+        out["norm2"] = ParamSpec((d,), ("embed",), "float32", init="zeros")
+        if cfg.is_moe:
+            out["moe"] = moe_params(cfg)
+        else:
+            out["mlp"] = mlp_params(d, cfg.d_ff, cfg.activation, cfg.dtype)
+        return out
 
     def param_specs(self) -> dict:
         """The reference's parameter tree: stacked ``stack{i}`` leaves with
@@ -204,17 +233,30 @@ class LM(nn.Module):
         head = top["embed"] if self.cfg.tie_embeddings else top["lm_head"]
         return x @ head.t()
 
-    def _block(self, bp: dict, x: torch.Tensor, rope, lc: dict | None = None) -> torch.Tensor:
-        """One ``attn`` block; with ``lc`` it also fills that layer's cache."""
+    def _block(self, bt: str, bp: dict, x: torch.Tensor, rope, lc: dict | None = None):
+        """One block; with ``lc`` it also fills that layer's cache.
+        Returns (x, the MoE aux loss or None)."""
         cfg = self.cfg
         h = rmsnorm(x, bp["norm1"], cfg.norm_eps)
+        if bt == "ssd":
+            y, state = ssd_block(bp["ssd"], h, cfg, return_state=True)
+            if lc is not None:
+                _copy_state(lc, state)
+            return x + y, None
         sin, cos = rope
         y, k, v = attention_kv(bp["attn"], h, cfg, sin=sin, cos=cos)
         if lc is not None:
             _fill_layer_cache(lc, k, v)
-        x = x + y
+        return self._ffn(bp, x + y)
+
+    def _ffn(self, bp: dict, x: torch.Tensor):
+        """The residual MLP or MoE half of an ``attn`` block: (x, aux or None)."""
+        cfg = self.cfg
         h2 = rmsnorm(x, bp["norm2"], cfg.norm_eps)
-        return x + mlp(bp["mlp"], h2, cfg.activation)
+        if cfg.is_moe:
+            y, aux = moe_ffn(bp["moe"], h2, cfg)
+            return x + y, aux
+        return x + mlp(bp["mlp"], h2, cfg.activation), None
 
     # ------------------------------------------------------------------
     # Training / encoder forward
@@ -227,51 +269,54 @@ class LM(nn.Module):
         positions: torch.Tensor | None = None,
         last_only: bool = False,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward; returns (logits (B,S,V), moe_aux = 0)."""
+        """Full-sequence forward; returns (logits (B,S,V), the MoE aux
+        losses summed over layers (0 without MoE))."""
         top, layers = self._params()
         x = self._embed_in(top, tokens, embeds)
         rope = self._rope_for(positions, x.shape[1])
-        for bp in layers:
-            x = self._block(bp, x, rope)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for bt, bp in zip(self.block_types, layers):
+            x, a = self._block(bt, bp, x, rope)
+            if a is not None:
+                aux = aux + a
         if last_only:
             x = x[:, -1:]
-        return self._head(top, x), torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._head(top, x), aux
 
     # ------------------------------------------------------------------
     # Serving: cache init / prefill / decode
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int) -> dict:
+    def _layer_cache(self, btype: str, n: int, batch: int, max_len: int) -> dict:
+        """One block's cache leaves, stacked over ``n`` layers."""
         cfg = self.cfg
         dt, dev = torch_dtype(cfg.dtype), self.device
+        if btype == "ssd":
+            return {k: v.new_zeros((n, *v.shape)) for k, v in ssd_state_init(cfg, batch, dev).items()}
         kv, hd = cfg.kv_heads, cfg.head_dim_
-        cache: dict[str, Any] = {}
-        for i, st in enumerate(self.stacks):
-            n = st.repeats
-            cache[f"stack{i}"] = {
-                f"b{j}_{bt}": {
-                    "k": torch.zeros((n, batch, max_len, kv, hd), dtype=dt, device=dev),
-                    "v": torch.zeros((n, batch, max_len, kv, hd), dtype=dt, device=dev),
-                    "pos": torch.full((n, max_len), -1, dtype=torch.int32, device=dev),
-                }
-                for j, bt in enumerate(st.pattern)
+        return {
+            "k": torch.zeros((n, batch, max_len, kv, hd), dtype=dt, device=dev),
+            "v": torch.zeros((n, batch, max_len, kv, hd), dtype=dt, device=dev),
+            "pos": torch.full((n, max_len), -1, dtype=torch.int32, device=dev),
+        }
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return {
+            f"stack{i}": {
+                f"b{j}_{bt}": self._layer_cache(bt, st.repeats, batch, max_len) for j, bt in enumerate(st.pattern)
             }
-        return cache
+            for i, st in enumerate(self.stacks)
+        }
 
     def cache_axes(self) -> dict:
         """Tree of logical-axes tuples parallel to :meth:`init_cache`."""
-        axes = {
-            "k": ("layers", "batch", None, "kv_heads", None),
-            "v": ("layers", "batch", None, "kv_heads", None),
-            "pos": ("layers", None),
-        }
         return {
-            f"stack{i}": {f"b{j}_{bt}": dict(axes) for j, bt in enumerate(st.pattern)}
+            f"stack{i}": {f"b{j}_{bt}": dict(_CACHE_AXES[bt]) for j, bt in enumerate(st.pattern)}
             for i, st in enumerate(self.stacks)
         }
 
     def _layer_caches(self, cache: dict) -> list[dict]:
-        """Per-layer views ``{"k", "v", "pos"}`` into the stacked cache, in
-        the order of ``self.layers``."""
+        """Per-layer views (``{"k", "v", "pos"}`` or the ssd state leaves)
+        into the stacked cache, in the order of ``self.layers``."""
         out = []
         for i, st in enumerate(self.stacks):
             sc = cache[f"stack{i}"]
@@ -313,12 +358,15 @@ class LM(nn.Module):
         position = int(position)
         top, layers = self._params()
         x = self._embed_in(top, tokens[:, None], None)
-        for bp, lc in zip(layers, self._layer_caches(cache)):
+        for bt, bp, lc in zip(self.block_types, layers, self._layer_caches(cache)):
             h = rmsnorm(x, bp["norm1"], cfg.norm_eps)
+            if bt == "ssd":
+                out, state = ssd_decode_step(bp["ssd"], h, lc, cfg)
+                _copy_state(lc, state)
+                x = x + out
+                continue
             out, _ = self._decode_attn(bp["attn"], h, lc, position)
-            x = x + out
-            h2 = rmsnorm(x, bp["norm2"], cfg.norm_eps)
-            x = x + mlp(bp["mlp"], h2, cfg.activation)
+            x, _ = self._ffn(bp, x + out)
         return self._head(top, x)[:, 0], cache
 
     def prefill(self, tokens: torch.Tensor, max_len: int | None = None) -> tuple[torch.Tensor, dict]:
@@ -335,10 +383,17 @@ class LM(nn.Module):
         return self._head(top, x[:, -1:])[:, 0], cache
 
     def _forward_filling(self, layers: list[dict], x: torch.Tensor, rope, cache: dict) -> torch.Tensor:
-        """Forward pass that also writes each layer's cache entry."""
-        for bp, lc in zip(layers, self._layer_caches(cache)):
-            x = self._block(bp, x, rope, lc)
+        """Forward pass that also writes each layer's cache entry (attention
+        k/v, or the ssd block's final recurrent and conv states)."""
+        for bt, bp, lc in zip(self.block_types, layers, self._layer_caches(cache)):
+            x, _ = self._block(bt, bp, x, rope, lc)
         return x
+
+
+def _copy_state(lc: dict, state: dict) -> None:
+    """Write an ssd block's new state tensors into its cache views."""
+    for k, v in state.items():
+        lc[k].copy_(v)
 
 
 def _fill_layer_cache(lc: dict, k: torch.Tensor, v: torch.Tensor) -> None:

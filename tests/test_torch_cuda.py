@@ -1,6 +1,7 @@
 """The port on the CUDA card: the Hopper kernels against their plain
-versions, one net through the CNN main path bit-exact, and a 2-layer LM
-whose prefill goes through the flash kernel.  Marked ``cuda``; without a
+versions, one net through the CNN main path bit-exact, a 2-layer LM
+whose prefill goes through the flash kernel, and 2-layer MoE and mamba2
+LMs through ``moe_gmm`` and ``ssd_scan``.  Marked ``cuda``; without a
 card each test skips (decided inside the fixture, never at import)."""
 
 import numpy as np
@@ -11,7 +12,17 @@ from repro_torch.backend import lower
 from repro_torch.cnn import execute_graph, init_graph_params, mlperf_tiny_networks, params_to_torch
 from repro_torch.core import dispatch
 from repro_torch.configs import get_smoke
-from repro_torch.kernels import flash_attention, flash_attention_plain, matmul_requant, matmul_requant_plain
+from repro_torch.kernels import (
+    flash_attention,
+    flash_attention_plain,
+    matmul_requant,
+    matmul_requant_plain,
+    moe_gmm,
+    moe_gmm_plain,
+    ssd_scan,
+    ssd_scan_plain,
+)
+from repro_torch.kernels.ref import ssd_scan_ref
 from repro_torch.models import LM
 
 pytestmark = pytest.mark.cuda
@@ -139,3 +150,77 @@ def test_two_layer_lm_prefill_launches_flash_per_layer(cuda, arch):
             want, want_cache = cpu.decode_step(want_cache, nxt, 9 + t)
             torch.testing.assert_close(lg.cpu(), want, atol=1e-3, rtol=1e-3)
     assert flash_attention.launches - before == cfg.n_layers  # decode attention is plain torch
+
+
+GMM_SHAPES = [(2, 16, 32, 64), (8, 64, 128, 128), (3, 8, 16, 384), (3, 37, 45, 70), (5, 1, 7, 3),
+              (40, 32, 1536, 512), (40, 32, 512, 1536)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F", GMM_SHAPES)
+def test_moe_gmm_kernel_matches_plain_version(cuda, E, C, D, F, dtype):
+    rng = np.random.default_rng(E * C + F)
+    x = torch.from_numpy(rng.normal(size=(E, C, D)).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((rng.normal(size=(E, D, F)) / np.sqrt(D)).astype(np.float32)).to(cuda, dtype)
+    before = moe_gmm.launches
+    got = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 1
+    assert got.dtype == dtype and got.shape == (E, C, F)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), moe_gmm_plain(x, w).float(), atol=tol, rtol=tol)
+    # x as the (E, C, D) view of (C, E, D) storage
+    xt = x.transpose(0, 1).contiguous().transpose(0, 1)
+    torch.testing.assert_close(moe_gmm(xt, w).float(), moe_gmm_plain(x, w).float(), atol=tol, rtol=tol)
+
+
+SSD_SHAPES = [(1, 2, 32, 8, 16), (2, 4, 64, 16, 32), (1, 3, 37, 8, 16), (2, 2, 5, 16, 16), (4, 64, 24, 64, 128),
+              (1, 64, 200, 64, 128)]
+
+
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,P,N", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain_version(cuda, B, H, T, P, N, bc_dtype):
+    rng = np.random.default_rng(T * P + N)
+    # (B, T, H, P) storage handed over as (B, H, T, P) views, as the model does
+    xb = torch.from_numpy(rng.normal(size=(B, T, H, P)).astype(np.float32)).to(cuda).transpose(1, 2)
+    a = torch.from_numpy((-np.abs(rng.normal(size=(B, T, H))) * 0.2).astype(np.float32)).to(cuda).transpose(1, 2)
+    Bm, Cm = (torch.from_numpy((rng.normal(size=(B, T, N)) / np.sqrt(N)).astype(np.float32)).to(cuda, bc_dtype)
+              for _ in range(2))
+    before = ssd_scan.launches
+    y, h = ssd_scan(xb, a, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.stride() == xb.stride()
+    y_want, h_want = ssd_scan_plain(xb, a, Bm, Cm)
+    torch.testing.assert_close(y, y_want, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(h, h_want, atol=2e-4, rtol=2e-4)
+    if T <= 64:
+        torch.testing.assert_close(y, ssd_scan_ref(xb, a, Bm, Cm), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "mamba2_1_3b"])
+def test_two_layer_moe_and_ssd_lm_on_card(cuda, arch):
+    """prefill and 3 greedy decode steps on the card against the CPU, with
+    the kernels' launch counts: 3 moe_gmm per MoE layer per call, one
+    ssd_scan per ssd layer per prefill."""
+    cfg = get_smoke(arch).replace(n_layers=2, dtype="float32")
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0)).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (3, 9)))
+    before = (moe_gmm.launches, ssd_scan.launches)
+    with torch.inference_mode():
+        lg, cache = gpu.prefill(toks.to(cuda), max_len=16)
+        want, want_cache = cpu.prefill(toks, max_len=16)
+        torch.testing.assert_close(lg.cpu(), want, atol=1e-3, rtol=1e-3)
+        for t in range(3):
+            nxt = want.argmax(-1)
+            assert torch.equal(lg.argmax(-1).cpu(), nxt)
+            lg, cache = gpu.decode_step(cache, nxt.to(cuda), 9 + t)
+            want, want_cache = cpu.decode_step(want_cache, nxt, 9 + t)
+            torch.testing.assert_close(lg.cpu(), want, atol=1e-3, rtol=1e-3)
+    calls = 4 if cfg.is_moe else 1
+    assert (moe_gmm.launches - before[0], ssd_scan.launches - before[1]) == (
+        3 * cfg.n_layers * calls if cfg.is_moe else 0,
+        0 if cfg.is_moe else cfg.n_layers,
+    )

@@ -34,7 +34,9 @@ assert {"repro_torch.backend.lower", "repro_torch.kernels.matmul_requant",
         "repro_torch.kernels.flash_attention", "repro_torch.models.transformer",
         "repro_torch.configs.qwen2_5_3b", "repro_torch.serving.engine",
         "repro_torch.launch.serve", "repro_torch.pipeline.schedule",
-        "repro_torch.calibrate.profile"} <= set(names)
+        "repro_torch.calibrate.profile", "repro_torch.kernels.moe_gmm",
+        "repro_torch.kernels.ssd_scan", "repro_torch.models.moe",
+        "repro_torch.models.ssd", "repro_torch.models.rglru"} <= set(names)
 """
 
 # the slice-2 entry points, each imported alone in a fresh interpreter

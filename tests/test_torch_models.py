@@ -1,9 +1,10 @@
 """The port's LM stack on the CPU against the JAX package.
 
 Layers (rope, rmsnorm, the three MLP activations), attention, and the
-whole ``LM`` — ``forward``, ``prefill`` (last logits and the cache's
-k/v/pos) and ``decode_step`` — on the ``SMOKE`` configs of the four dense
-archs in float32.  The reference's weights come from ``LM.init`` and are
+whole ``LM`` — ``forward`` (logits and the MoE aux loss), ``prefill``
+(last logits and every cache leaf: k/v/pos, or the ssd states) and
+``decode_step`` — on the ``SMOKE`` configs of the four dense archs, the
+two MoE archs (granite-moe, dbrx) and mamba2, in float32.  The reference's weights come from ``LM.init`` and are
 carried into the port by ``params_from_jax``; token inputs are made with
 numpy from a seed.  Both packages compute in IEEE float32, in different
 summation orders: tolerance 1e-4 relative and absolute, scaled by the
@@ -29,7 +30,8 @@ from repro_torch.models import attention as pattn
 from repro_torch.models import layers as players
 
 DENSE = ["gemma_7b", "granite_34b", "qwen2_5_3b", "starcoder2_15b"]
-UNPORTED = [a for a in ALL_ARCHS if a not in DENSE]
+PORTED = DENSE + ["granite_moe_3b_a800m", "dbrx_132b", "mamba2_1_3b"]
+UNPORTED = [a for a in ALL_ARCHS if a not in PORTED]
 TOL = 1e-4
 
 
@@ -57,6 +59,19 @@ def _models(arch):
 
 def _tokens(cfg, B, S, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (B, S)).astype(np.int32)
+
+
+def _cache_close(pc, jc):
+    """Every leaf of the port's cache against the reference's: the
+    ring-buffer ``pos`` leaves exactly, the rest within ``_close``."""
+    assert set(pc) == set(jc)
+    for k in pc:
+        if isinstance(pc[k], dict):
+            _cache_close(pc[k], jc[k])
+        elif k == "pos":
+            assert torch.equal(pc[k], torch.from_numpy(np.array(jc[k])))
+        else:
+            _close(pc[k], jc[k])
 
 
 # ---------------------------------------------------------------------------
@@ -159,19 +174,20 @@ def test_forward_with_embeds_and_positions_matches_reference(arch):
     _close(got, want)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_forward_matches_reference(arch):
     jm, jp, pm = _models(arch)
     toks = _tokens(jm.cfg, 2, 16)
-    want, _ = jm.forward(jp, jnp.asarray(toks))
+    want, want_aux = jm.forward(jp, jnp.asarray(toks))
     got, aux = pm(torch.from_numpy(toks))
-    assert float(aux) == 0.0
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-5, abs=1e-6)
+    assert (float(aux) > 0) == jm.cfg.is_moe
     _close(got, want)
     last, _ = pm(torch.from_numpy(toks), last_only=True)
     _close(last, np.asarray(want)[:, -1:])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_prefill_and_decode_match_reference(arch):
     jm, jp, pm = _models(arch)
     cfg = jm.cfg
@@ -180,22 +196,24 @@ def test_prefill_and_decode_match_reference(arch):
     jl, jc = jm.prefill(jp, jnp.asarray(toks[:, :S]), max_len=S + steps + 2)
     pl, pc = pm.prefill(torch.from_numpy(toks[:, :S]), max_len=S + steps + 2)
     _close(pl, jl)
-    for name in ("k", "v"):
-        _close(pc["stack0"]["b0_attn"][name], jc["stack0"]["b0_attn"][name])
-    assert torch.equal(pc["stack0"]["b0_attn"]["pos"], torch.from_numpy(np.asarray(jc["stack0"]["b0_attn"]["pos"])))
+    _cache_close(pc, jc)
     for t in range(steps):
         jl, jc = jm.decode_step(jp, jc, jnp.asarray(toks[:, S + t]), jnp.int32(S + t))
         pl, pc = pm.decode_step(pc, torch.from_numpy(toks[:, S + t]), S + t)
         _close(pl, jl)
-    for name in ("k", "v", "pos"):
-        _close(pc["stack0"]["b0_attn"][name], jc["stack0"]["b0_attn"][name])
+    _cache_close(pc, jc)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_prefill_plus_decode_reproduces_forward(arch):
     """prefill + decode reproduce the teacher-forced forward
-    (``tests/test_models_smoke.py:60``), in the port alone."""
-    _, _, pm = _models(arch)
+    (``tests/test_models_smoke.py:60``), in the port alone.  MoE configs
+    get a capacity that drops nothing: the forward groups S + 2 tokens,
+    prefill S and decode 1, so their capacities differ."""
+    _, jp, pm = _models(arch)
+    if pm.cfg.is_moe:
+        cfg = pm.cfg.replace(capacity_factor=pm.cfg.n_experts / pm.cfg.top_k)
+        pm = params_from_jax(LM(cfg, device="cpu"), jax.tree.map(np.asarray, jp))
     B, S, steps = 2, 16, 2
     toks = torch.from_numpy(_tokens(pm.cfg, B, S + steps, seed=7).astype(np.int64))
     full, _ = pm(toks)
@@ -207,7 +225,7 @@ def test_prefill_plus_decode_reproduces_forward(arch):
     assert max(errs) < 1e-3 * max(1.0, float(full.abs().max())), errs
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_exact_cache_keeps_the_last_entries(arch):
     """max_len == prompt length: the exactly-sized cache path."""
     jm, jp, pm = _models(arch)
@@ -215,11 +233,10 @@ def test_exact_cache_keeps_the_last_entries(arch):
     jl, jc = jm.prefill(jp, jnp.asarray(toks))
     pl, pc = pm.prefill(torch.from_numpy(toks))
     _close(pl, jl)
-    _close(pc["stack0"]["b0_attn"]["k"], jc["stack0"]["b0_attn"]["k"])
-    assert pc["stack0"]["b0_attn"]["pos"].tolist() == np.asarray(jc["stack0"]["b0_attn"]["pos"]).tolist()
+    _cache_close(pc, jc)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_param_shapes_and_cache_axes_match_reference(arch):
     jm, _, pm = _models(arch)
 
@@ -232,7 +249,7 @@ def test_param_shapes_and_cache_axes_match_reference(arch):
     jcache = jax.eval_shape(lambda: jm.init_cache(2, 32))
     assert jax.tree.map(lambda a: tuple(a.shape), cache) == jax.tree.map(lambda a: tuple(a.shape), jcache)
     # the module's per-layer parameters are the stacked leaves' slices
-    stacked = pm.param_shapes()["stack0"]["b0_attn"]
+    stacked = pm.param_shapes()["stack0"][f"b0_{pm.block_types[0]}"]
     layer = pm.layers[0].tree()
     assert jax.tree.map(lambda t: tuple(t.shape), layer) == jax.tree.map(
         lambda s: s[0][1:], stacked, is_leaf=lambda x: isinstance(x, tuple)
@@ -288,3 +305,15 @@ def test_prefill_counts_no_launch_on_cpu():
     before = flash_attention.launches
     pm.prefill(torch.zeros((1, 4), dtype=torch.int64), max_len=8)
     assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "mamba2_1_3b"])
+def test_moe_and_ssd_paths_count_no_launch_on_cpu(arch):
+    """On CPU tensors every kernel wrapper takes its plain version."""
+    from repro_torch.kernels import moe_gmm, ssd_scan
+
+    _, _, pm = _models(arch)
+    before = (flash_attention.launches, moe_gmm.launches, ssd_scan.launches)
+    _, cache = pm.prefill(torch.zeros((2, 4), dtype=torch.int64), max_len=8)
+    pm.decode_step(cache, torch.zeros(2, dtype=torch.int64), 4)
+    assert (flash_attention.launches, moe_gmm.launches, ssd_scan.launches) == before

@@ -2,10 +2,10 @@
 
 Against the JAX package: the same requests through the reference
 ``ServeEngine`` and the port's, on ``tests/test_serving_engine.py``'s
-``TINY`` model in float32 with the reference's weights carried by
-``params_from_jax``, must give identical ``out_tokens``, ``truncated``
-flags, ``decode_steps`` and ``refills`` (greedy, and sampled from the
-same ``rng_seed``).  Then the reference's ServeEngine regressions —
+``TINY`` model and on the granite-moe, dbrx and mamba2 smoke configs, in
+float32 with the reference's weights carried by ``params_from_jax``,
+must give identical ``out_tokens``, ``truncated`` flags, ``decode_steps``
+and ``refills`` (greedy, and sampled from the same ``rng_seed``).  Then the reference's ServeEngine regressions —
 refill, truncation warning, the poll-free queue — ported to the port's
 engine, and the ``repro_torch.launch.serve`` CLI on a smoke config.
 """
@@ -19,10 +19,12 @@ import jax
 import numpy as np
 import pytest
 
+from repro.configs import get_smoke as jax_get_smoke
 from repro.models import LM as JaxLM
 from repro.models import ModelConfig as JaxConfig
 from repro.serving import Request as JaxRequest
 from repro.serving import ServeEngine as JaxEngine
+from repro_torch.configs import get_smoke
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import LM, ModelConfig, params_from_jax
 from repro_torch.serving import Request, ServeEngine, TruncationWarning
@@ -41,17 +43,30 @@ def _port_model(dtype="float32"):
     return params_from_jax(LM(ModelConfig(**TINY, dtype=dtype), device="cpu"), jax.tree.map(np.asarray, params))
 
 
+@lru_cache(maxsize=None)
+def _smoke_models(arch):
+    """(JAX LM, its params, the port LM carrying them) on a smoke config in float32."""
+    jm = JaxLM(jax_get_smoke(arch).replace(dtype="float32"))
+    jp = jm.init(jax.random.key(0))
+    pm = params_from_jax(LM(get_smoke(arch).replace(dtype="float32"), device="cpu"), jax.tree.map(np.asarray, jp))
+    return jm, jp, pm
+
+
 def _prompt(rng, n):
     return rng.integers(1, TINY["vocab"], n).astype(np.int32)
 
 
-def _serve_both(specs, *, slots, max_len, seed, temperature=0.0):
-    """Run ``specs`` [(prompt_len, max_new)] through both engines."""
+def _serve_both(specs, *, slots, max_len, seed, temperature=0.0, arch=None):
+    """Run ``specs`` [(prompt_len, max_new)] through both engines, on
+    ``TINY`` or on the smoke config of ``arch``."""
     rng = np.random.default_rng(seed)
     prompts = [_prompt(rng, n) for n, _ in specs]
-    jm, jp = _jax_model("float32")
+    if arch is None:
+        (jm, jp), pm = _jax_model("float32"), _port_model()
+    else:
+        jm, jp, pm = _smoke_models(arch)
     jeng = JaxEngine(jm, jp, batch_slots=slots, max_len=max_len, rng_seed=seed)
-    peng = ServeEngine(_port_model(), batch_slots=slots, max_len=max_len, rng_seed=seed)
+    peng = ServeEngine(pm, batch_slots=slots, max_len=max_len, rng_seed=seed)
     for rid, (p, (_, max_new)) in enumerate(zip(prompts, specs)):
         jeng.submit(JaxRequest(rid, p, max_new_tokens=max_new, temperature=temperature))
         peng.submit(Request(rid, p, max_new_tokens=max_new, temperature=temperature))
@@ -74,12 +89,32 @@ def _serve_both(specs, *, slots, max_len, seed, temperature=0.0):
     ids=["refill", "padded-refill", "long-prompt", "truncation", "mixed", "sampled"],
 )
 def test_engine_matches_reference(case):
-    jeng, peng, jdone, pdone = _serve_both(**case)
+    _assert_same_serving(*_serve_both(**case))
+
+
+def _assert_same_serving(jeng, peng, jdone, pdone):
     assert [r.rid for r in pdone] == [r.rid for r in jdone]
     for pr, jr in zip(pdone, jdone):
         assert pr.out_tokens == jr.out_tokens, pr.rid
         assert (pr.done, pr.truncated) == (jr.done, jr.truncated), pr.rid
     assert (peng.decode_steps, peng.refills) == (jeng.decode_steps, jeng.refills)
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        dict(specs=[(8, 12), (6, 3), (10, 5)], slots=2, max_len=64, seed=2),  # padded refill
+        dict(specs=[(5, 6), (9, 4), (3, 7), (12, 5), (7, 3)], slots=3, max_len=40, seed=5),
+    ],
+    ids=["padded-refill", "mixed"],
+)
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "dbrx_132b", "mamba2_1_3b"])
+def test_engine_matches_reference_on_moe_and_ssd(arch, case):
+    """The MoE and mamba2 smoke models: refills merge the ssd state leaves
+    (and the k/v) into their rows through ``cache_axes``."""
+    jeng, peng, jdone, pdone = _serve_both(**case, arch=arch)
+    assert peng.refills >= 1
+    _assert_same_serving(jeng, peng, jdone, pdone)
 
 
 # ---------------------------------------------------------------------------
@@ -181,8 +216,17 @@ def test_serve_cli_on_smoke_config(capsys):
     assert "[serve] 5 requests, 20 tokens in" in out
 
 
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "mamba2_1_3b"])
+def test_serve_cli_on_moe_and_ssd_smoke_configs(arch, capsys):
+    done = serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "5", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert sorted(r.rid for r in done) == list(range(5))
+    assert all(len(r.out_tokens) == 4 and not r.truncated for r in done)
+    assert "[serve] 5 requests, 20 tokens in" in out
+
+
 def test_serve_cli_refuses_encoder_only_and_unported_configs():
     with pytest.raises(AssertionError, match="encoder-only"):
         serve_cli.main(["--arch", "hubert_xlarge", "--smoke", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_cli.main(["--arch", "mamba2_1_3b", "--smoke", "--device", "cpu"])
+        serve_cli.main(["--arch", "recurrentgemma_2b", "--smoke", "--device", "cpu"])
