@@ -20,25 +20,35 @@ failure:
    strided operands and granite-moe-3b-a800m's shapes; ``ssd_scan`` (y and
    the final state) within 2e-4 of its plain version and of the
    sequential oracle on the kernel test grid, ragged T and mamba2-1.3b's
-   shapes; then times of each at its path's shapes beside the plain
-   version, one PyTorch library call where there is one, and the bound;
+   shapes; ``rglru_scan`` within 1e-4 of its plain version and of the
+   sequential oracle on the kernel test grid, ragged T and W, strided and
+   bf16 operands and recurrentgemma-2b's shapes; then times of each at its
+   path's shapes (flash also at recurrentgemma-2b's local-attention shape)
+   beside the plain version, one PyTorch library call where there is one,
+   and the bound;
 4. CNN path: the four MLPerf-Tiny nets x {gap9, diana} through
    ``repro_torch.core.dispatch`` -> ``repro_torch.backend.lower`` (default
    device) -> 4 requests through ``CompiledModel.run``, each output
    bit-exact with the port's CPU interpreter, and the GEMM launch count
    equal to (GEMM segments) x 4 requests;
 5. LM parity: qwen2.5-3b, granite-moe-3b-a800m and mamba2-1.3b at full
-   width, 2 layers, float32, prefill and 4 greedy decode steps on the card
-   (the kernels) against the same module on the CPU (plain versions),
-   logits within 1e-3 and identical tokens;
+   width, 2 layers, float32, a 16-token prefill, and recurrentgemma-2b at
+   full width, 3 layers (rglru, rglru, local_attn), float32, a 2048-token
+   prefill that fills its local-attention ring, with RG-LRU decays drawn
+   in about 0.4-0.999 so the recurrence carries; each with 4 greedy decode
+   steps (recurrentgemma's wrap the ring) on the card (the kernels) against
+   the same module on the CPU (plain versions), logits within 1e-3 and
+   identical tokens;
 6. LM serve path: ``repro_torch.launch.serve``'s engine on qwen2.5-3b (36
-   layers), granite-moe-3b-a800m (32) and mamba2-1.3b (48), each at full
-   width and depth (bf16, weights from a generator seeded 0), 6 requests,
-   12 new tokens each, greedy; every request served, all logits finite,
-   and exact launch counts: flash = attention layers x prefill calls,
+   layers), granite-moe-3b-a800m (32), mamba2-1.3b (48) and
+   recurrentgemma-2b (26), each at full width and depth (bf16, weights
+   from a generator seeded 0), 6 requests, 12 new tokens each, greedy;
+   every request served, all logits finite, and exact launch counts:
+   flash = attention layers (``attn`` and ``local_attn``) x prefill calls,
    moe_gmm = 3 x MoE layers x (prefill calls + decode steps), ssd_scan =
-   ssd layers x prefill calls, and no launch of a kernel off the path;
-   then a profiler breakdown of a decode step;
+   ssd layers x prefill calls, rglru_scan = rglru layers x prefill calls,
+   and no launch of a kernel off the path; then a profiler breakdown of a
+   decode step;
 7. one JSON line of per-kernel numbers, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -82,17 +92,20 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
 from repro_torch.kernels.matmul_requant import matmul_requant, matmul_requant_plain  # noqa: E402
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain  # noqa: E402
-from repro_torch.kernels.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ref import rglru_scan_ref, ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import rglru as rglru_mod  # noqa: E402
+from repro_torch.models.layers import rmsnorm  # noqa: E402
 
 DEV = torch.device("cuda")
 NETS = ("MobileNet", "ResNet", "DSCNN", "DAE")
 TARGETS = ("gap9", "diana")
 REQUESTS = 4
-KERNELS = ("matmul_requant", "flash_attention", "moe_gmm", "ssd_scan")
-COUNTED = (matmul_requant, flash_attention, moe_gmm, ssd_scan)  # wrappers with a launch count
+KERNELS = ("matmul_requant", "flash_attention", "moe_gmm", "ssd_scan", "rglru_scan")
+COUNTED = (matmul_requant, flash_attention, moe_gmm, ssd_scan, rglru_scan)  # wrappers with a launch count
 # H100 SXM data sheet: HBM3 bytes/s, dense int8 and bf16 tensor-core ops/s,
 # fp32 ops/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -120,6 +133,15 @@ GMM_RAGGED = ((3, 37, 45, 70), (5, 1, 7, 3), (2, 33, 100, 65))
 SSD_GRID = ((1, 2, 32, 8, 16), (2, 4, 64, 16, 32))
 SSD_RAGGED = ((1, 3, 37, 8, 16), (2, 2, 5, 16, 16), (1, 2, 100, 16, 32))
 SSD_TIMED = ((4, 24), (4, 512), (1, 4096))
+RG_ARCH = "recurrentgemma_2b"
+# rglru_scan: the kernel test grid (B, T, W) with a in U(0.2, 0.999), ragged
+# T and W; times at (B, T) with recurrentgemma-2b's W = 2560, a and b f32
+RGLRU_TOL = 1e-4
+RGLRU_GRID = ((1, 32, 16), (2, 128, 64), (3, 64, 256))
+RGLRU_RAGGED = ((2, 37, 45), (1, 5, 3), (3, 20, 130))
+RGLRU_TIMED = ((4, 24), (4, 512), (1, 4096))
+# flash at recurrentgemma-2b's local attention (H=10, KV=1, D=256, window 2048)
+RG_FLASH_TIMED = ((4, 24), (1, 4096))
 
 
 def card_line() -> str:
@@ -330,7 +352,7 @@ def flash_operands(B, H, KV, Sq, Sk, D, dtype, seed, *, bshd=False):
 def phase_flash_kernel() -> dict:
     """The flash kernel against its plain version on the card, within
     the reference kernel test's tolerance; max |kernel - plain| printed."""
-    cfg = get_config(LM_ARCH)
+    cfg, rg = get_config(LM_ARCH), get_config(RG_ARCH)
     H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim_
     cases = []  # (label, B, H, KV, Sq, Sk, D, dtype, kwargs, bshd)
     for dtype in (torch.float32, torch.bfloat16):
@@ -348,6 +370,11 @@ def phase_flash_kernel() -> dict:
                 cases.append(("ragged", 2, 4, 1, S, S, 24, dtype, {"causal": causal}, False))
         for S in (4, 17, 24, 35):  # serving: the engine's prompt lengths and past them
             cases.append(("serve", 4, H, KV, S, S, D, dtype, {"causal": True}, True))
+            cases.append(("rgemma", 4, rg.n_heads, rg.kv_heads, S, S, rg.head_dim_, dtype,
+                          {"causal": True, "window": rg.local_window}, True))
+        # recurrentgemma's head shape with a window that bites
+        cases.append(("rgemma", 1, rg.n_heads, rg.kv_heads, 300, 300, rg.head_dim_, dtype,
+                      {"causal": True, "window": 64}, True))
     worst: dict[str, float] = {}
     for i, (label, B, H_, KV_, Sq, Sk, D_, dtype, kw, bshd) in enumerate(cases):
         q, k, v = flash_operands(B, H_, KV_, Sq, Sk, D_, dtype, seed=i, bshd=bshd)
@@ -405,6 +432,47 @@ def phase_flash_timing() -> list[dict]:
             ),
         }
         row["bound_ms"], row["bound_by"] = flash_bound_ms(B, H, KV, S, D)
+        rows.append(row)
+        print(f"    {B:>2d} {S:>5d} {row['ms']:>10.5f} {row['eager_ms']:>10.5f} {row['plain_ms']:>10.5f} "
+              f"{row['library_ms']:>10.5f} {row['bound_ms']:>10.6f} ({row['bound_by']})")
+    return rows
+
+
+def window_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal attention over S tokens keeps when each
+    query sees the ``window`` keys up to itself."""
+    w = min(S, window)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def phase_rg_flash_timing() -> list[dict]:
+    """Times at recurrentgemma-2b's local attention, bf16, causal, window."""
+    cfg = get_config(RG_ARCH)
+    H, KV, D, W = cfg.n_heads, cfg.kv_heads, cfg.head_dim_, cfg.local_window
+    print(f"[kernels] flash_attention at {RG_ARCH} local attention (H={H}, KV={KV}, D={D}, bf16, causal, "
+          f"window {W}), ms per call; library = F.scaled_dot_product_attention with the boolean window mask "
+          "(enable_gqa), timed only")
+    print(f"    {'B':>2s} {'S':>5s} {'kernel':>10s} {'kern eager':>10s} {'plain':>10s} "
+          f"{'library':>10s} {'bound':>10s}")
+    rows = []
+    for B, S in RG_FLASH_TIMED:
+        q, k, v = flash_operands(B, H, KV, S, S, D, torch.bfloat16, seed=S + 1, bshd=True)
+        i = torch.arange(S, device=DEV)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
+        iters = 200 if S <= 512 else 10
+        row = {
+            "shape": [B, H, KV, S, D, W],
+            "ms": graph_ms(lambda: flash_attention(q, k, v, causal=True, window=W), iters),
+            "eager_ms": eager_ms(lambda: flash_attention(q, k, v, causal=True, window=W), iters),
+            "plain_ms": graph_ms(lambda: flash_attention_plain(q, k, v, causal=True, window=W), iters),
+            "library_ms": graph_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True), iters
+            ),
+        }
+        # q, k, v read once and o written once (2 bytes an element); 4 B H D
+        # flops per kept (query, key) pair at the bf16 tensor-core rate
+        nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * B * H * D * window_pairs(S, W), BF16_FLOPS_S)
         rows.append(row)
         print(f"    {B:>2d} {S:>5d} {row['ms']:>10.5f} {row['eager_ms']:>10.5f} {row['plain_ms']:>10.5f} "
               f"{row['library_ms']:>10.5f} {row['bound_ms']:>10.6f} ({row['bound_by']})")
@@ -566,6 +634,81 @@ def phase_ssd_timing() -> list[dict]:
     return rows
 
 
+def rglru_operands(B, T, W, dtype, seed, *, strided=False):
+    """a in U(0.2, 0.999) and b normal, (B, T, W) on the card in ``dtype``
+    (the kernel test's distributions).  With ``strided`` each is the
+    (B, T, W) view of (T, B, W) storage."""
+    rng = np.random.default_rng(seed)
+
+    def mk(x):
+        if strided:
+            return torch.from_numpy(np.ascontiguousarray(x.transpose(1, 0, 2))).to(DEV, dtype).transpose(0, 1)
+        return torch.from_numpy(x).to(DEV, dtype)
+
+    return mk(rng.uniform(0.2, 0.999, (B, T, W)).astype(np.float32)), mk(rng.normal(size=(B, T, W)).astype(np.float32))
+
+
+def phase_rglru_kernel() -> dict:
+    """The RG-LRU scan against its plain version and the sequential oracle
+    on the card, within the reference kernel test's 1e-4."""
+    W = get_config(RG_ARCH).lru_width
+    shapes = [("grid", *s, False) for s in RGLRU_GRID] + [("ragged", *s, st) for s in RGLRU_RAGGED
+                                                         for st in (False, True)]
+    shapes += [("rgemma", SERVE_SLOTS, T, W, False) for T in (4, 24, 35)] + [("rgemma", 1, 300, W, False)]
+    worst: dict[str, float] = {}
+    cases = 0
+    for i, (label, B, T, W_, strided) in enumerate(shapes):
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = rglru_operands(B, T, W_, dtype, seed=i, strided=strided)
+            h = rglru_scan(a, b)
+            torch.cuda.synchronize()
+            if h.dtype != torch.float32 or h.shape != (B, T, W_) or not torch.isfinite(h).all():
+                raise AssertionError(f"rglru_scan {label} {(B, T, W_)} {dtype}: bad output")
+            for what, want in (("plain", rglru_scan_plain(a, b)), ("oracle", rglru_scan_ref(a, b))):
+                diff = (h - want).abs()
+                if bool((diff > RGLRU_TOL + RGLRU_TOL * want.abs()).any()):
+                    raise AssertionError(
+                        f"rglru_scan {label} {(B, T, W_)} {dtype} strided={strided}: max |kernel - {what}| "
+                        f"= {float(diff.max()):.3g} beyond atol = rtol = {RGLRU_TOL}"
+                    )
+                key = f"{label} {str(dtype).split('.')[-1]} vs {what}"
+                worst[key] = max(worst.get(key, 0.0), float(diff.max()))
+            cases += 1
+    print(f"[kernels] rglru_scan within {RGLRU_TOL} of rglru_scan_plain and rglru_scan_ref on {cases} cases "
+          "(a, b in f32 and bf16); max |kernel - want| per group:")
+    for key, err in worst.items():
+        print(f"    {key:28s} {err:.3e}")
+    return {"max_abs_err": max(worst.values())}
+
+
+def phase_rglru_timing() -> list[dict]:
+    """Times at recurrentgemma-2b's prefill shapes: a, b f32, as the model
+    passes them."""
+    W = get_config(RG_ARCH).lru_width
+    print(f"[kernels] rglru_scan at {RG_ARCH} prefill shapes (W={W}; a, b f32), ms per call; graph = device "
+          "time in a CUDA graph, eager = launched from Python; no library call computes the recurrence")
+    print(f"    {'B':>2s} {'T':>5s} {'kernel':>10s} {'kern eager':>10s} {'plain':>10s} {'bound':>10s}")
+    rows = []
+    for B, T in RGLRU_TIMED:
+        a, b = rglru_operands(B, T, W, torch.float32, seed=T)
+        iters = 200 if T <= 512 else 20
+        row = {
+            "shape": [B, T, W],
+            "ms": graph_ms(lambda: rglru_scan(a, b), iters),
+            "eager_ms": eager_ms(lambda: rglru_scan(a, b), iters),
+            # the plain version is one launch per time step: fewer calls per graph
+            "plain_ms": graph_ms(lambda: rglru_scan_plain(a, b), max(2, 4096 // T)),
+            "library_ms": None,
+        }
+        # a and b read once and h written once, 4 bytes each; 2 flops an
+        # element at the fp32 rate outside the tensor cores
+        row["bound_ms"], row["bound_by"] = bound(12 * B * T * W, 2 * B * T * W, FP32_FLOPS_S)
+        rows.append(row)
+        print(f"    {B:>2d} {T:>5d} {row['ms']:>10.5f} {row['eager_ms']:>10.5f} {row['plain_ms']:>10.5f} "
+              f"{row['bound_ms']:>10.6f} ({row['bound_by']})")
+    return rows
+
+
 def reset_counts() -> None:
     for fn in COUNTED:
         fn.launches = 0
@@ -576,23 +719,28 @@ def read_counts() -> dict[str, int]:
 
 
 def layer_kinds(cfg) -> dict[str, int]:
-    """Layers of ``cfg`` by what they launch: attention, MoE and ssd."""
+    """Layers of ``cfg`` by what they launch: attention (``attn`` and
+    ``local_attn``), MoE (the FFN half of every non-ssd block), ssd and
+    rglru."""
     pat = cfg.layer_pattern()
-    attn = sum(bt == "attn" for bt in pat)
-    return {"attn": attn, "moe": attn if cfg.is_moe else 0, "ssd": sum(bt == "ssd" for bt in pat)}
+    attn = sum(bt in ("attn", "local_attn") for bt in pat)
+    rglru = sum(bt == "rglru" for bt in pat)
+    return {"attn": attn, "moe": attn + rglru if cfg.is_moe else 0, "ssd": sum(bt == "ssd" for bt in pat),
+            "rglru": rglru}
 
 
 def expected_counts(cfg, prefills: int, decode_steps: int) -> dict[str, int]:
     """Exact launches of each kernel on the LM path: flash once per
-    attention layer and ssd_scan once per ssd layer per prefill call (decode
-    is plain torch there), moe_gmm three times per MoE layer per prefill
-    call and per decode step."""
+    attention layer, ssd_scan once per ssd layer and rglru_scan once per
+    rglru layer per prefill call (decode is plain torch there), moe_gmm
+    three times per MoE layer per prefill call and per decode step."""
     n = layer_kinds(cfg)
     return {
         "matmul_requant": 0,
         "flash_attention": n["attn"] * prefills,
         "moe_gmm": 3 * n["moe"] * (prefills + decode_steps),
         "ssd_scan": n["ssd"] * prefills,
+        "rglru_scan": n["rglru"] * prefills,
     }
 
 
@@ -601,19 +749,77 @@ def check_counts(where: str, got: dict[str, int], want: dict[str, int]) -> None:
         raise AssertionError(f"{where}: kernel launches {got}, expected {want}")
 
 
-def phase_lm_parity(arch: str) -> dict:
-    """``arch`` at full width, 2 layers, fp32: the module on the card (the
-    kernels) against a copy on the CPU (plain versions)."""
-    cfg = get_config(arch).replace(n_layers=2, dtype="float32")
+@torch.no_grad()
+def draw_rglru_decays(lm, seed: int) -> None:
+    """Redraw every rglru layer's decay and gate parameters in place, from a
+    CPU generator seeded ``seed``: ``lam`` uniform in [-6, -2], the decay
+    gate's bias N(0, 0.5) and weight N(0, 0.001), the input gate's N(0,
+    0.5).  At the reference init every a_t is near e^-5.25 and h carries
+    nothing across time; these put a_t in about 0.4-0.999.  The decay
+    gate's weight stays small because its input is large: a stacked
+    leaf's fan-in is its layer count, 1 in a one-repeat stack, so at full
+    width x W_x has entries in the hundreds.  A wider weight saturates
+    r_t and puts a_t within float32 ulps of 1, where 1 - a_t^2 keeps no
+    correct digit and the card and the CPU round it apart."""
+    g = torch.Generator().manual_seed(seed)
+    for bt, layer in zip(lm.block_types, lm.layers):
+        if bt == "rglru":
+            p = layer.rglru
+            p.lam.uniform_(-6.0, -2.0, generator=g)
+            p.gate_a_b.normal_(0.0, 0.5, generator=g)
+            p.gate_a_w.normal_(0.0, 0.001, generator=g)
+            p.gate_i_b.normal_(0.0, 0.5, generator=g)
+            p.gate_i_w.normal_(0.0, 0.5, generator=g)
+
+
+def check_decays(lm, tokens) -> str:
+    """The decays a_t of ``lm``'s first rglru layer on ``tokens`` (CPU):
+    they must carry across time (max above 0.9) and stay clear of 1 (max
+    below 0.9999, where 1 - a_t^2 still keeps its leading digits)."""
+    top, layers = lm._params()
+    p = layers[lm.block_types.index("rglru")]
+    h = rmsnorm(lm._embed_in(top, tokens, None), p["norm1"], lm.cfg.norm_eps)
+    xr, _ = rglru_mod._causal_conv1d(h @ p["rglru"]["wx"], p["rglru"]["conv_w"])
+    a, _ = rglru_mod._gates(p["rglru"], xr)
+    lo, hi = float(a.min()), float(a.max())
+    if not 0.9 < hi < 0.9999:
+        raise AssertionError(f"drawn decays a_t in [{lo:.6f}, {hi:.6f}]: need a max in (0.9, 0.9999)")
+    return f"first rglru layer's a_t in [{lo:.4f}, {hi:.6f}]"
+
+
+def check_rings(arch: str, cache: dict, cfg, max_len: int, last: int) -> None:
+    """Every local-attention ring is min(max_len, window) slots long and
+    holds position ``last`` at slot ``last % L``."""
+    for i, stack in cache.items():
+        for name, leaves in stack.items():
+            if name.endswith("local_attn"):
+                pos = leaves["pos"]
+                L = pos.shape[-1]
+                if L != min(max_len, cfg.local_window) or bool((pos[:, last % L] != last).any()):
+                    raise AssertionError(f"LM parity {arch}: {i}/{name} ring of {L} slots, pos[{last % L}] "
+                                         f"= {pos[:, last % L].tolist()}, expected {last}")
+
+
+def phase_lm_parity(arch: str, *, n_layers: int = 2, prompt: int = 16, prepare=None) -> dict:
+    """``arch`` at full width, ``n_layers`` layers, fp32: the module on the
+    card (the kernels) against a copy on the CPU (plain versions), a
+    ``prompt``-token prefill and 4 greedy decode steps.  ``prepare(lm)``
+    edits the CPU module's weights before the copy."""
+    cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32")
     t0 = time.perf_counter()
     cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    if prepare is not None:
+        prepare(cpu)
     gpu = copy.deepcopy(cpu).to(DEV)
-    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 16)))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, prompt)))
+    max_len = prompt + 8
     worst, tokens = 0.0, []
+    with torch.inference_mode():
+        decays = check_decays(cpu, toks) if "rglru" in cfg.block_types else ""
     reset_counts()
     with torch.inference_mode():
-        lg, cache = gpu.prefill(toks.to(DEV), max_len=24)
-        want, want_cache = cpu.prefill(toks, max_len=24)
+        lg, cache = gpu.prefill(toks.to(DEV), max_len=max_len)
+        want, want_cache = cpu.prefill(toks, max_len=max_len)
         for step in range(5):
             got = lg.cpu()
             if not torch.isfinite(got).all():
@@ -630,13 +836,15 @@ def phase_lm_parity(arch: str) -> dict:
             tokens.append(nxt.tolist())
             if step == 4:
                 break
-            lg, cache = gpu.decode_step(cache, nxt.to(DEV), 16 + step)
-            want, want_cache = cpu.decode_step(want_cache, nxt, 16 + step)
+            lg, cache = gpu.decode_step(cache, nxt.to(DEV), prompt + step)
+            want, want_cache = cpu.decode_step(want_cache, nxt, prompt + step)
     counts = read_counts()
     check_counts(f"LM parity {arch}", counts, expected_counts(cfg, prefills=1, decode_steps=4))
-    print(f"[lm] {cfg.name} full width x {cfg.n_layers} layers fp32: prefill + 4 greedy steps, card vs cpu "
+    check_rings(arch, cache, cfg, max_len, prompt + 3)
+    print(f"[lm] {cfg.name} full width x {cfg.n_layers} layers fp32: prefill of {prompt} + 4 greedy steps, "
+          "card vs cpu "
           f"max |logit diff| {worst:.3e} (atol=rtol=1e-3), tokens identical {tokens}, "
-          f"launches {counts}, {time.perf_counter() - t0:.1f} s")
+          f"launches {counts}, {time.perf_counter() - t0:.1f} s" + (f"; {decays}" if decays else ""))
     del cpu, gpu, cache, want_cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -768,6 +976,7 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:28",
     "moe_gmm": "src/repro/kernels/moe_gmm.py:22",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:27",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:26",
 }
 
 
@@ -800,10 +1009,17 @@ def main() -> None:
     gmm_rows = phase_moe_gmm_timing()
     ssd = phase_ssd_kernel()
     ssd_rows = phase_ssd_timing()
+    rglru = phase_rglru_kernel()
+    rglru_rows = phase_rglru_timing()
+    rg_flash_rows = phase_rg_flash_timing()
     cnn = phase_cnn_path()
     for arch in (LM_ARCH, MOE_ARCH, SSD_ARCH):
         phase_lm_parity(arch)
-    served = {arch: phase_serve(arch) for arch in (LM_ARCH, MOE_ARCH, SSD_ARCH)}
+    # one (rglru, rglru, local_attn) period; the prompt fills the 2048-slot
+    # ring (S % L == 0, clear of ROADMAP C-ref-6) and decode wraps it
+    phase_lm_parity(RG_ARCH, n_layers=3, prompt=get_config(RG_ARCH).local_window,
+                    prepare=lambda lm: draw_rglru_decays(lm, seed=1))
+    served = {arch: phase_serve(arch) for arch in (LM_ARCH, MOE_ARCH, SSD_ARCH, RG_ARCH)}
 
     def shapes(rows):
         return [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in rows]
@@ -814,11 +1030,15 @@ def main() -> None:
         # the serving engine's prefill shape first
         kernel_entry("flash_attention", served[LM_ARCH]["launches"]["flash_attention"], flash, flash_rows[0],
                      max_abs_err_f32=flash["max_abs_err_f32"], prefill_shapes=shapes(flash_rows),
-                     launches_granite_moe=served[MOE_ARCH]["launches"]["flash_attention"]),
+                     launches_granite_moe=served[MOE_ARCH]["launches"]["flash_attention"],
+                     local_attn_shapes=shapes(rg_flash_rows),
+                     launches_recurrentgemma=served[RG_ARCH]["launches"]["flash_attention"]),
         kernel_entry("moe_gmm", served[MOE_ARCH]["launches"]["moe_gmm"], gmm, gmm_rows[0],
                      max_abs_err_f32=gmm["max_abs_err_f32"], serve_shapes=shapes(gmm_rows)),
         kernel_entry("ssd_scan", served[SSD_ARCH]["launches"]["ssd_scan"], ssd, ssd_rows[0],
                      prefill_shapes=shapes(ssd_rows)),
+        kernel_entry("rglru_scan", served[RG_ARCH]["launches"]["rglru_scan"], rglru, rglru_rows[0],
+                     prefill_shapes=shapes(rglru_rows)),
     ]
     print(json.dumps({"kernels": entries}))
     print(card)

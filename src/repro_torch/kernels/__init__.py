@@ -15,18 +15,19 @@
   (returning the final state too), a hand-written CUDA kernel
   (``csrc/ssd_scan.cu``) in place of the reference's Pallas kernel, with
   :func:`ssd_scan_plain` beside it;
+* :func:`rglru_scan` — the RG-LRU linear recurrence, a hand-written CUDA
+  kernel (``csrc/rglru_scan.cu``) in place of the reference's Pallas
+  kernel, with :func:`rglru_scan_plain` beside it;
 * :func:`tiled_conv2d` — the banded SAME conv (plain ``F.conv2d`` per
   band, as the reference's is plain ``lax.conv_general_dilated``);
 * :mod:`.ref` — plain torch oracles.
-
-The reference's last Pallas kernel, the RG-LRU scan, is not ported yet
-(ROADMAP B5).
 """
 
 from . import ref
 from .flash_attention import flash_attention, flash_attention_plain
 from .matmul_requant import matmul_requant, matmul_requant_plain
 from .moe_gmm import moe_gmm, moe_gmm_plain
+from .rglru_scan import rglru_scan, rglru_scan_plain
 from .ssd_scan import ssd_scan, ssd_scan_plain
 from .tiled_conv import tiled_conv2d
 
@@ -38,6 +39,8 @@ __all__ = [
     "matmul_requant_plain",
     "moe_gmm",
     "moe_gmm_plain",
+    "rglru_scan",
+    "rglru_scan_plain",
     "ssd_scan",
     "ssd_scan_plain",
     "tiled_conv2d",

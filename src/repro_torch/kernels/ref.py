@@ -1,7 +1,7 @@
 """Plain torch oracles for the port's kernels (allclose / equality targets).
 
-The port of ``repro.kernels.ref``; the oracles of the kernels this
-package has so far (``rglru_scan_ref`` comes with the RG-LRU slice).
+The port of ``repro.kernels.ref``: one oracle for each of the five
+kernels.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ import math
 
 import torch
 
-__all__ = ["matmul_requant_ref", "flash_attention_ref", "moe_gmm_ref", "ssd_scan_ref"]
+__all__ = ["matmul_requant_ref", "flash_attention_ref", "moe_gmm_ref", "rglru_scan_ref", "ssd_scan_ref"]
 
 
 def matmul_requant_ref(a, w, mult, bias, *, shift: int = 8, relu: bool = False):
@@ -43,6 +43,18 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
 def moe_gmm_ref(x, w):
     """y[e] = x[e] @ w[e] in fp32, returned in x's dtype.  x (E, C, D), w (E, D, F)."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def rglru_scan_ref(a, b):
+    """Sequential scan oracle (fp32): h_t = a_t h_{t-1} + b_t from h_0 = 0.
+    a, b (B, T, W) -> h (B, T, W) float32."""
+    af, bf = a.float(), b.float()
+    h = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32, device=a.device)
+    hs = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
 
 
 def ssd_scan_ref(xb, a, Bm, Cm):

@@ -1,13 +1,14 @@
-"""The LM for the ``attn`` (dense MLP or MoE) and ``ssd`` architectures — in PyTorch.
+"""The LM for the ``attn``, ``local_attn``, ``rglru`` and ``ssd`` blocks — in PyTorch.
 
 The port of ``repro.models.transformer``.  One class, :class:`LM`, an
 ``nn.Module`` holding its own parameters, for stacks of
 * ``attn`` blocks with a dense MLP (gemma-7b, granite-34b, qwen2.5-3b,
-  starcoder2-15b) or a top-k MoE (granite-moe-3b-a800m, dbrx-132b), and
-* mamba2 ``ssd`` blocks, which carry no MLP (mamba2-1.3b).
-The other block families (RG-LRU, ``local_attn``), M-RoPE and the
-frontend stub raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+  starcoder2-15b) or a top-k MoE (granite-moe-3b-a800m, dbrx-132b),
+* mamba2 ``ssd`` blocks, which carry no MLP (mamba2-1.3b), and
+* Griffin ``rglru`` blocks and windowed ``local_attn`` blocks, each with
+  an MLP, in recurrentgemma-2b's (rglru, rglru, local_attn) pattern.
+M-RoPE (qwen2-vl) and the frontend stub (hubert) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 What changes against the reference:
 
@@ -17,17 +18,27 @@ What changes against the reference:
   :meth:`LM.param_specs` and :meth:`LM.param_shapes` still describe the
   stacked tree, and :func:`params_from_jax` loads one into the module.
 * The cache keeps the reference's tree and layout: per stack and
-  ``attn`` block ``{"k", "v": (layers, B, S_max, KV, hd), "pos":
-  (layers, S_max)}`` with the ring-buffer ``pos`` leaf; per ``ssd`` block
-  ``{"h": (layers, B, H, P, N) fp32, "conv_x", "conv_B", "conv_C":
-  (layers, B, conv-1, ...)}``.  ``prefill`` and ``decode_step`` write it
-  in place (no copy of the cache per step) and return it.
+  ``attn`` block ``{"k", "v": (layers, B, L, KV, hd), "pos": (layers,
+  L)}`` with ``L = S_max`` and the ``pos`` leaf tagging each slot; a
+  ``local_attn`` block the same with ``L = min(S_max, local_window)``, a
+  ring buffer that decode writes at slot ``position % L``; per ``rglru``
+  block ``{"h": (layers, B, W) fp32, "conv": (layers, B, conv-1, W)}``;
+  per ``ssd`` block ``{"h": (layers, B, H, P, N) fp32, "conv_x",
+  "conv_B", "conv_C": (layers, B, conv-1, ...)}``.  ``prefill`` and
+  ``decode_step`` write it in place (no copy of the cache per step) and
+  return it.
+* The reference's ring mapping is right only when the prompt fits the
+  ring or fills it a whole number of times (``S <= L`` or ``S % L ==
+  0``); otherwise decode overwrites slots still inside the window
+  (ROADMAP C-ref-6).  The port reproduces that, slot for slot.
 * Prefill attention runs through the flash kernel
   (:func:`repro_torch.models.attention.attention_kv`) and reuses its k/v
   for the cache, where the reference projects them a second time.  The
   MoE expert GEMMs run through the ``moe_gmm`` kernel
   (:mod:`repro_torch.models.moe`), the SSD core of prefill and forward
-  through the ``ssd_scan`` kernel (:mod:`repro_torch.models.ssd`).
+  through the ``ssd_scan`` kernel (:mod:`repro_torch.models.ssd`), the
+  RG-LRU recurrence through the ``rglru_scan`` kernel
+  (:mod:`repro_torch.models.rglru`).
 
 Entry points:
   forward(tokens | embeds)            -> (logits (B,S,V), MoE aux)
@@ -60,6 +71,7 @@ from repro_torch.models.layers import (
     torch_dtype,
 )
 from repro_torch.models.moe import moe_ffn, moe_params
+from repro_torch.models.rglru import rglru_block, rglru_decode_step, rglru_params, rglru_state_init
 from repro_torch.models.ssd import ssd_block, ssd_decode_step, ssd_params, ssd_state_init
 
 __all__ = ["LM", "StackSpec", "params_from_jax"]
@@ -92,11 +104,17 @@ def _stack_specs(specs, n: int):
 
 
 # logical axes of each block type's cache leaves (the reference's)
+_KV_AXES = {
+    "k": ("layers", "batch", None, "kv_heads", None),
+    "v": ("layers", "batch", None, "kv_heads", None),
+    "pos": ("layers", None),
+}
 _CACHE_AXES = {
-    "attn": {
-        "k": ("layers", "batch", None, "kv_heads", None),
-        "v": ("layers", "batch", None, "kv_heads", None),
-        "pos": ("layers", None),
+    "attn": _KV_AXES,
+    "local_attn": _KV_AXES,
+    "rglru": {
+        "h": ("layers", "batch", "ffn"),
+        "conv": ("layers", "batch", None, "ffn"),
     },
     "ssd": {
         "h": ("layers", "batch", "heads", None, None),
@@ -110,8 +128,6 @@ _CACHE_AXES = {
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet, naming its ROADMAP item."""
     missing = []
-    if "rglru" in cfg.block_types or "local_attn" in cfg.block_types:
-        missing.append("recurrentgemma RG-LRU and local-attention blocks with the rglru_scan kernel (ROADMAP A11/B5)")
     if cfg.pos_kind == "mrope":
         missing.append("M-RoPE positions for qwen2-vl (ROADMAP A11)")
     if cfg.frontend_stub:
@@ -175,7 +191,10 @@ class LM(nn.Module):
         if btype == "ssd":
             out["ssd"] = ssd_params(cfg)
             return out  # mamba2 blocks carry no separate MLP
-        out["attn"] = attn_mod.attention_params(cfg)
+        if btype == "rglru":
+            out["rglru"] = rglru_params(cfg)
+        else:
+            out["attn"] = attn_mod.attention_params(cfg)
         out["norm2"] = ParamSpec((d,), ("embed",), "float32", init="zeros")
         if cfg.is_moe:
             out["moe"] = moe_params(cfg)
@@ -243,14 +262,23 @@ class LM(nn.Module):
             if lc is not None:
                 _copy_state(lc, state)
             return x + y, None
+        if bt == "rglru":
+            y, state = rglru_block(bp["rglru"], h, cfg, return_state=True)
+            if lc is not None:
+                _copy_state(lc, state)
+            return self._ffn(bp, x + y)
         sin, cos = rope
-        y, k, v = attention_kv(bp["attn"], h, cfg, sin=sin, cos=cos)
+        y, k, v = attention_kv(bp["attn"], h, cfg, sin=sin, cos=cos, window=self._window(bt))
         if lc is not None:
             _fill_layer_cache(lc, k, v)
         return self._ffn(bp, x + y)
 
+    def _window(self, bt: str) -> int | None:
+        return self.cfg.local_window if bt == "local_attn" else None
+
     def _ffn(self, bp: dict, x: torch.Tensor):
-        """The residual MLP or MoE half of an ``attn`` block: (x, aux or None)."""
+        """The residual MLP or MoE half of an attention or ``rglru`` block:
+        (x, aux or None)."""
         cfg = self.cfg
         h2 = rmsnorm(x, bp["norm2"], cfg.norm_eps)
         if cfg.is_moe:
@@ -290,13 +318,15 @@ class LM(nn.Module):
         """One block's cache leaves, stacked over ``n`` layers."""
         cfg = self.cfg
         dt, dev = torch_dtype(cfg.dtype), self.device
-        if btype == "ssd":
-            return {k: v.new_zeros((n, *v.shape)) for k, v in ssd_state_init(cfg, batch, dev).items()}
+        if btype in ("ssd", "rglru"):
+            init = ssd_state_init if btype == "ssd" else rglru_state_init
+            return {k: v.new_zeros((n, *v.shape)) for k, v in init(cfg, batch, dev).items()}
         kv, hd = cfg.kv_heads, cfg.head_dim_
+        length = min(max_len, cfg.local_window) if btype == "local_attn" else max_len
         return {
-            "k": torch.zeros((n, batch, max_len, kv, hd), dtype=dt, device=dev),
-            "v": torch.zeros((n, batch, max_len, kv, hd), dtype=dt, device=dev),
-            "pos": torch.full((n, max_len), -1, dtype=torch.int32, device=dev),
+            "k": torch.zeros((n, batch, length, kv, hd), dtype=dt, device=dev),
+            "v": torch.zeros((n, batch, length, kv, hd), dtype=dt, device=dev),
+            "pos": torch.full((n, length), -1, dtype=torch.int32, device=dev),
         }
 
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -315,8 +345,8 @@ class LM(nn.Module):
         }
 
     def _layer_caches(self, cache: dict) -> list[dict]:
-        """Per-layer views (``{"k", "v", "pos"}`` or the ssd state leaves)
-        into the stacked cache, in the order of ``self.layers``."""
+        """Per-layer views (``{"k", "v", "pos"}`` or the rglru or ssd state
+        leaves) into the stacked cache, in the order of ``self.layers``."""
         out = []
         for i, st in enumerate(self.stacks):
             sc = cache[f"stack{i}"]
@@ -325,10 +355,10 @@ class LM(nn.Module):
                     out.append({name: leaf[r] for name, leaf in sc[f"b{j}_{bt}"].items()})
         return out
 
-    def _decode_attn(self, ap: dict, x: torch.Tensor, lc: dict, position: int):
+    def _decode_attn(self, bt: str, ap: dict, x: torch.Tensor, lc: dict, position: int):
         """Single-token attention over the ``pos``-tagged cache slots;
-        writes ``lc`` in place.  (The reference's ring-buffer slot and
-        window serve ``local_attn``, which the port does not run yet.)"""
+        writes ``lc`` in place.  ``local_attn`` writes its ring buffer at
+        ``position % L`` and keeps the keys inside its window."""
         cfg = self.cfg
         q, k_new, v_new = attn_mod._qkv(ap, x, cfg)
         if cfg.pos_kind != "none":
@@ -336,13 +366,17 @@ class LM(nn.Module):
             sin, cos = rope_tables(pos, cfg.head_dim_, cfg.rope_theta)
             q = attn_mod.apply_rope(q, sin, cos)
             k_new = attn_mod.apply_rope(k_new, sin, cos)
-        # lax.dynamic_update_slice clamps the slot into the buffer
-        slot = min(max(position, 0), lc["k"].shape[1] - 1)
+        L = lc["k"].shape[1]
+        # attn: lax.dynamic_update_slice clamps the slot into the buffer
+        slot = position % L if bt == "local_attn" else min(max(position, 0), L - 1)
         lc["k"][:, slot] = k_new[:, 0]
         lc["v"][:, slot] = v_new[:, 0]
         lc["pos"][slot] = position
         posbuf = lc["pos"]
         valid = (posbuf >= 0) & (posbuf <= position)
+        window = self._window(bt)
+        if window is not None:
+            valid &= posbuf > position - window
         out = attn_mod._attend_cache(q, lc["k"], lc["v"], valid, cfg, x.dtype)
         return out @ ap["wo"], lc
 
@@ -365,7 +399,11 @@ class LM(nn.Module):
                 _copy_state(lc, state)
                 x = x + out
                 continue
-            out, _ = self._decode_attn(bp["attn"], h, lc, position)
+            if bt == "rglru":
+                out, state = rglru_decode_step(bp["rglru"], h, lc, cfg)
+                _copy_state(lc, state)
+            else:
+                out, _ = self._decode_attn(bt, bp["attn"], h, lc, position)
             x, _ = self._ffn(bp, x + out)
         return self._head(top, x)[:, 0], cache
 
@@ -384,14 +422,14 @@ class LM(nn.Module):
 
     def _forward_filling(self, layers: list[dict], x: torch.Tensor, rope, cache: dict) -> torch.Tensor:
         """Forward pass that also writes each layer's cache entry (attention
-        k/v, or the ssd block's final recurrent and conv states)."""
+        k/v, or the rglru or ssd block's final recurrent and conv states)."""
         for bt, bp, lc in zip(self.block_types, layers, self._layer_caches(cache)):
             x, _ = self._block(bt, bp, x, rope, lc)
         return x
 
 
 def _copy_state(lc: dict, state: dict) -> None:
-    """Write an ssd block's new state tensors into its cache views."""
+    """Write an rglru or ssd block's new state tensors into its cache views."""
     for k, v in state.items():
         lc[k].copy_(v)
 
@@ -401,7 +439,8 @@ def _fill_layer_cache(lc: dict, k: torch.Tensor, v: torch.Tensor) -> None:
     S = k.shape[1]
     L = lc["k"].shape[1]
     if L <= S:
-        # exactly-sized cache: keep the last L entries
+        # ring buffer (local_attn) or exactly-sized cache: keep the last L
+        # entries; decode's ring slots follow only if S % L == 0 (C-ref-6)
         lc["k"].copy_(k[:, -L:])
         lc["v"].copy_(v[:, -L:])
         lc["pos"].copy_(torch.arange(S - L, S, dtype=torch.int32, device=k.device))

@@ -1,7 +1,8 @@
 """The port on the CUDA card: the Hopper kernels against their plain
 versions, one net through the CNN main path bit-exact, a 2-layer LM
-whose prefill goes through the flash kernel, and 2-layer MoE and mamba2
-LMs through ``moe_gmm`` and ``ssd_scan``.  Marked ``cuda``; without a
+whose prefill goes through the flash kernel, 2-layer MoE and mamba2
+LMs through ``moe_gmm`` and ``ssd_scan``, and a 3-layer recurrentgemma
+LM through ``rglru_scan`` and the windowed flash kernel.  Marked ``cuda``; without a
 card each test skips (decided inside the fixture, never at import)."""
 
 import numpy as np
@@ -19,10 +20,12 @@ from repro_torch.kernels import (
     matmul_requant_plain,
     moe_gmm,
     moe_gmm_plain,
+    rglru_scan,
+    rglru_scan_plain,
     ssd_scan,
     ssd_scan_plain,
 )
-from repro_torch.kernels.ref import ssd_scan_ref
+from repro_torch.kernels.ref import rglru_scan_ref, ssd_scan_ref
 from repro_torch.models import LM
 
 pytestmark = pytest.mark.cuda
@@ -224,3 +227,76 @@ def test_two_layer_moe_and_ssd_lm_on_card(cuda, arch):
         3 * cfg.n_layers * calls if cfg.is_moe else 0,
         0 if cfg.is_moe else cfg.n_layers,
     )
+
+
+RGLRU_SHAPES = [(1, 32, 16), (2, 128, 64), (3, 64, 256), (2, 37, 45), (1, 5, 3), (4, 24, 2560), (1, 300, 2560)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,W", RGLRU_SHAPES)
+def test_rglru_scan_kernel_matches_plain_version(cuda, B, T, W, dtype):
+    """Within the reference kernel test's 1e-4 of the plain version and the
+    sequential oracle, also on (B, T, W) views of (T, B, W) storage."""
+    rng = np.random.default_rng(B * T + W)
+    a = torch.from_numpy(rng.uniform(0.2, 0.999, (B, T, W)).astype(np.float32)).to(cuda, dtype)
+    b = torch.from_numpy(rng.normal(size=(B, T, W)).astype(np.float32)).to(cuda, dtype)
+    before = rglru_scan.launches
+    h = rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    assert h.dtype == torch.float32 and h.shape == (B, T, W) and h.is_contiguous()
+    want = rglru_scan_plain(a, b)
+    torch.testing.assert_close(h, want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, rglru_scan_ref(a, b), atol=1e-4, rtol=1e-4)
+    at, bt = (x.transpose(0, 1).contiguous().transpose(0, 1) for x in (a, b))
+    torch.testing.assert_close(rglru_scan(at, bt), want, atol=1e-4, rtol=1e-4)
+
+
+def test_rglru_scan_kernel_rejects_mixed_dtypes_and_devices(cuda):
+    a = torch.zeros((1, 4, 8), device=cuda)
+    with pytest.raises(TypeError):
+        rglru_scan(a, a.bfloat16())
+    with pytest.raises(ValueError):
+        rglru_scan(a, a.cpu())
+
+
+@torch.no_grad()
+def _draw_rglru_decays(lm, seed):
+    """lam uniform in [-6, -2] and the gates drawn as ``chip_smoke.py``
+    draws them, so that a_t lies in about 0.4-0.999 and h carries."""
+    g = torch.Generator().manual_seed(seed)
+    for bt, layer in zip(lm.block_types, lm.layers):
+        if bt == "rglru":
+            p = layer.rglru
+            p.lam.uniform_(-6.0, -2.0, generator=g)
+            p.gate_a_b.normal_(0.0, 0.5, generator=g)
+            p.gate_a_w.normal_(0.0, 0.001, generator=g)
+            p.gate_i_b.normal_(0.0, 0.5, generator=g)
+            p.gate_i_w.normal_(0.0, 0.5, generator=g)
+
+
+def test_recurrentgemma_lm_on_card(cuda):
+    """One (rglru, rglru, local_attn) period of the smoke config: a prompt
+    that fills the window of 16, then 3 greedy decode steps that wrap the
+    ring, on the card against the CPU; 2 rglru_scan and 1 flash launches
+    per prefill, none per decode step."""
+    cfg = get_smoke("recurrentgemma_2b").replace(n_layers=3, dtype="float32")
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    _draw_rglru_decays(cpu, seed=1)
+    gpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (3, 16)))
+    before = (rglru_scan.launches, flash_attention.launches)
+    with torch.inference_mode():
+        lg, cache = gpu.prefill(toks.to(cuda), max_len=24)
+        want, want_cache = cpu.prefill(toks, max_len=24)
+        torch.testing.assert_close(lg.cpu(), want, atol=1e-3, rtol=1e-3)
+        for t in range(3):
+            nxt = want.argmax(-1)
+            assert torch.equal(lg.argmax(-1).cpu(), nxt)
+            lg, cache = gpu.decode_step(cache, nxt.to(cuda), 16 + t)
+            want, want_cache = cpu.decode_step(want_cache, nxt, 16 + t)
+            torch.testing.assert_close(lg.cpu(), want, atol=1e-3, rtol=1e-3)
+    assert (rglru_scan.launches - before[0], flash_attention.launches - before[1]) == (2, 1)
+    assert cache["stack0"]["b2_local_attn"]["pos"][0].tolist() == [16, 17, 18] + list(range(3, 16))

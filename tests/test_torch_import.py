@@ -36,7 +36,8 @@ assert {"repro_torch.backend.lower", "repro_torch.kernels.matmul_requant",
         "repro_torch.launch.serve", "repro_torch.pipeline.schedule",
         "repro_torch.calibrate.profile", "repro_torch.kernels.moe_gmm",
         "repro_torch.kernels.ssd_scan", "repro_torch.models.moe",
-        "repro_torch.models.ssd", "repro_torch.models.rglru"} <= set(names)
+        "repro_torch.models.ssd", "repro_torch.models.rglru",
+        "repro_torch.kernels.rglru_scan"} <= set(names)
 """
 
 # the slice-2 entry points, each imported alone in a fresh interpreter

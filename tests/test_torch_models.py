@@ -4,7 +4,7 @@ Layers (rope, rmsnorm, the three MLP activations), attention, and the
 whole ``LM`` — ``forward`` (logits and the MoE aux loss), ``prefill``
 (last logits and every cache leaf: k/v/pos, or the ssd states) and
 ``decode_step`` — on the ``SMOKE`` configs of the four dense archs, the
-two MoE archs (granite-moe, dbrx) and mamba2, in float32.  The reference's weights come from ``LM.init`` and are
+two MoE archs (granite-moe, dbrx), mamba2 and recurrentgemma, in float32.  The reference's weights come from ``LM.init`` and are
 carried into the port by ``params_from_jax``; token inputs are made with
 numpy from a seed.  Both packages compute in IEEE float32, in different
 summation orders: tolerance 1e-4 relative and absolute, scaled by the
@@ -30,7 +30,7 @@ from repro_torch.models import attention as pattn
 from repro_torch.models import layers as players
 
 DENSE = ["gemma_7b", "granite_34b", "qwen2_5_3b", "starcoder2_15b"]
-PORTED = DENSE + ["granite_moe_3b_a800m", "dbrx_132b", "mamba2_1_3b"]
+PORTED = DENSE + ["granite_moe_3b_a800m", "dbrx_132b", "mamba2_1_3b", "recurrentgemma_2b"]
 UNPORTED = [a for a in ALL_ARCHS if a not in PORTED]
 TOL = 1e-4
 
@@ -209,12 +209,19 @@ def test_prefill_plus_decode_reproduces_forward(arch):
     """prefill + decode reproduce the teacher-forced forward
     (``tests/test_models_smoke.py:60``), in the port alone.  MoE configs
     get a capacity that drops nothing: the forward groups S + 2 tokens,
-    prefill S and decode 1, so their capacities differ."""
+    prefill S and decode 1, so their capacities differ.  For
+    recurrentgemma the identity holds only where the local-attention ring
+    (L = min(S + steps, window)) maps prefill's slots as decode reads
+    them, S <= L or S % L == 0 (ROADMAP C-ref-6); S = 16 fills its window
+    of 16 exactly."""
     _, jp, pm = _models(arch)
     if pm.cfg.is_moe:
         cfg = pm.cfg.replace(capacity_factor=pm.cfg.n_experts / pm.cfg.top_k)
         pm = params_from_jax(LM(cfg, device="cpu"), jax.tree.map(np.asarray, jp))
     B, S, steps = 2, 16, 2
+    if "local_attn" in pm.cfg.block_types:
+        L = min(S + steps, pm.cfg.local_window)
+        assert S <= L or S % L == 0
     toks = torch.from_numpy(_tokens(pm.cfg, B, S + steps, seed=7).astype(np.int64))
     full, _ = pm(toks)
     lg, cache = pm.prefill(toks[:, :S], max_len=S + steps)
@@ -307,13 +314,14 @@ def test_prefill_counts_no_launch_on_cpu():
     assert flash_attention.launches == before
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "mamba2_1_3b"])
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "mamba2_1_3b", "recurrentgemma_2b"])
 def test_moe_and_ssd_paths_count_no_launch_on_cpu(arch):
     """On CPU tensors every kernel wrapper takes its plain version."""
-    from repro_torch.kernels import moe_gmm, ssd_scan
+    from repro_torch.kernels import moe_gmm, rglru_scan, ssd_scan
 
     _, _, pm = _models(arch)
-    before = (flash_attention.launches, moe_gmm.launches, ssd_scan.launches)
+    counted = (flash_attention, moe_gmm, ssd_scan, rglru_scan)
+    before = [k.launches for k in counted]
     _, cache = pm.prefill(torch.zeros((2, 4), dtype=torch.int64), max_len=8)
     pm.decode_step(cache, torch.zeros(2, dtype=torch.int64), 4)
-    assert (flash_attention.launches, moe_gmm.launches, ssd_scan.launches) == before
+    assert [k.launches for k in counted] == before

@@ -2,8 +2,9 @@
 
 Against the JAX package: the same requests through the reference
 ``ServeEngine`` and the port's, on ``tests/test_serving_engine.py``'s
-``TINY`` model and on the granite-moe, dbrx and mamba2 smoke configs, in
-float32 with the reference's weights carried by ``params_from_jax``,
+``TINY`` model and on the granite-moe, dbrx, mamba2 and recurrentgemma
+smoke configs, in float32 with the reference's weights carried by
+``params_from_jax`` (recurrentgemma's decays drawn by ``perturb_rglru``),
 must give identical ``out_tokens``, ``truncated`` flags, ``decode_steps``
 and ``refills`` (greedy, and sampled from the same ``rng_seed``).  Then the reference's ServeEngine regressions —
 refill, truncation warning, the poll-free queue — ported to the port's
@@ -16,9 +17,11 @@ import warnings
 from functools import lru_cache
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _torch_port import perturb_rglru
 from repro.configs import get_smoke as jax_get_smoke
 from repro.models import LM as JaxLM
 from repro.models import ModelConfig as JaxConfig
@@ -45,11 +48,14 @@ def _port_model(dtype="float32"):
 
 @lru_cache(maxsize=None)
 def _smoke_models(arch):
-    """(JAX LM, its params, the port LM carrying them) on a smoke config in float32."""
+    """(JAX LM, its params, the port LM carrying them) on a smoke config in
+    float32; RG-LRU decays drawn so that the recurrence carries."""
     jm = JaxLM(jax_get_smoke(arch).replace(dtype="float32"))
-    jp = jm.init(jax.random.key(0))
-    pm = params_from_jax(LM(get_smoke(arch).replace(dtype="float32"), device="cpu"), jax.tree.map(np.asarray, jp))
-    return jm, jp, pm
+    params = jax.tree.map(np.asarray, jm.init(jax.random.key(0)))
+    if "rglru" in jm.cfg.block_types:
+        params = perturb_rglru(params, seed=5)
+    pm = params_from_jax(LM(get_smoke(arch).replace(dtype="float32"), device="cpu"), params)
+    return jm, jax.tree.map(jnp.asarray, params), pm
 
 
 def _prompt(rng, n):
@@ -113,6 +119,26 @@ def test_engine_matches_reference_on_moe_and_ssd(arch, case):
     """The MoE and mamba2 smoke models: refills merge the ssd state leaves
     (and the k/v) into their rows through ``cache_axes``."""
     jeng, peng, jdone, pdone = _serve_both(**case, arch=arch)
+    assert peng.refills >= 1
+    _assert_same_serving(jeng, peng, jdone, pdone)
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        dict(specs=[(20, 6), (17, 4), (24, 8), (9, 5)], slots=2, max_len=40, seed=7),  # past the window
+        dict(specs=[(16, 5), (32, 3), (12, 6)], slots=2, max_len=48, seed=8),  # prompts of 16 and 32
+        dict(specs=[(8, 12), (6, 3), (10, 5)], slots=2, max_len=14, seed=2),  # ring of max_len < window
+    ],
+    ids=["past-window", "window-multiples", "short-ring"],
+)
+def test_engine_matches_reference_on_recurrentgemma(case):
+    """The recurrentgemma smoke model (window 16): refills merge the
+    rglru states and the local-attention rings into their rows through
+    ``cache_axes``; prompts reach past the window, where the reference's
+    ring mapping may be misaligned (ROADMAP C-ref-6) and the port follows
+    it."""
+    jeng, peng, jdone, pdone = _serve_both(**case, arch="recurrentgemma_2b")
     assert peng.refills >= 1
     _assert_same_serving(jeng, peng, jdone, pdone)
 
@@ -216,7 +242,7 @@ def test_serve_cli_on_smoke_config(capsys):
     assert "[serve] 5 requests, 20 tokens in" in out
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "mamba2_1_3b"])
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "mamba2_1_3b", "recurrentgemma_2b"])
 def test_serve_cli_on_moe_and_ssd_smoke_configs(arch, capsys):
     done = serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "5", "--max-new", "4"])
     out = capsys.readouterr().out
@@ -229,4 +255,4 @@ def test_serve_cli_refuses_encoder_only_and_unported_configs():
     with pytest.raises(AssertionError, match="encoder-only"):
         serve_cli.main(["--arch", "hubert_xlarge", "--smoke", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_cli.main(["--arch", "recurrentgemma_2b", "--smoke", "--device", "cpu"])
+        serve_cli.main(["--arch", "qwen2_vl_2b", "--smoke", "--device", "cpu"])
