@@ -1,6 +1,7 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                       # every phase, as below
+    python3 chip_smoke.py --only kernels,prefill-long [--src DIR]
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
 ``nvcc``; run from the root of a checkout.  Phases, each raising on
@@ -9,23 +10,29 @@ failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the main paths compiled by ``nvcc`` from
    ``src/repro_torch/kernels/csrc``, one compiler per source, all started
-   together (build seconds, ``-Xptxas -v``);
+   together (build seconds, ``-Xptxas -v``), and no spill store in any
+   bf16 tensor-core instantiation (registers and spills printed);
 3. kernels, each on the card against its plain PyTorch version:
    ``matmul_requant`` bit-exact (tolerance 0: integer arithmetic) on the
    CNN path's shapes, the test grid and ragged shapes, both roundings,
    ReLU on and off; ``flash_attention`` within 2e-5 (f32) and 2e-2 (bf16)
    on the kernel test grid (causal and not), Sq != Sk with ``q_offset``,
-   sliding windows, ragged lengths and the serving shapes; ``moe_gmm``
-   within 1e-4 (f32) and 2e-2 (bf16) on the kernel test grid, ragged and
-   strided operands and granite-moe-3b-a800m's shapes; ``ssd_scan`` (y and
-   the final state) within 2e-4 of its plain version and of the
-   sequential oracle on the kernel test grid, ragged T and mamba2-1.3b's
-   shapes; ``rglru_scan`` within 1e-4 of its plain version and of the
-   sequential oracle on the kernel test grid, ragged T and W, strided and
-   bf16 operands and recurrentgemma-2b's shapes; then times of each at its
-   path's shapes (flash also at recurrentgemma-2b's local-attention shape)
-   beside the plain version, one PyTorch library call where there is one,
-   and the bound;
+   sliding windows, ragged lengths, the serving shapes, bf16 at D in
+   {24, 80, 256} with Sq, Sk in {1, 63, 65, 129}, views whose rows start
+   one element off 16 bytes, and rows with no valid key (negative
+   ``q_offset``, causal); ``moe_gmm`` within 1e-4 (f32) and 2e-2 (bf16)
+   on the kernel test grid, ragged, strided and misaligned operands and
+   granite-moe-3b-a800m's shapes (C = 32, a refill's 16 and one slot's
+   decode, 8); ``ssd_scan`` (y and the final state) within 2e-4 of its
+   plain version and of the sequential oracle on the kernel test grid,
+   ragged T and mamba2-1.3b's shapes; ``rglru_scan`` within 1e-4 of its
+   plain version and of the sequential oracle on the kernel test grid,
+   ragged T and W, strided and bf16 operands and recurrentgemma-2b's
+   shapes; then times of each at its path's shapes (flash also at
+   recurrentgemma-2b's local-attention shape) beside the plain version,
+   one PyTorch library call where there is one, the bound, and, printed
+   only, the time the same kernel took before the bf16 redesign
+   (``BEFORE_MS``, from ``PERF.md``'s kernel table);
 4. CNN path: the four MLPerf-Tiny nets x {gap9, diana} through
    ``repro_torch.core.dispatch`` -> ``repro_torch.backend.lower`` (default
    device) -> 4 requests through ``CompiledModel.run``, each output
@@ -39,7 +46,23 @@ failure:
    steps (recurrentgemma's wrap the ring) on the card (the kernels) against
    the same module on the CPU (plain versions), logits within 1e-3 and
    identical tokens;
-6. LM serve path: ``repro_torch.launch.serve``'s engine on qwen2.5-3b (36
+6. bf16 LM check of the tensor-core kernels: qwen2.5-3b and
+   granite-moe-3b-a800m at full width, 2 layers, a (4, 512) prefill, and
+   recurrentgemma-2b, 3 layers, a (2, 4096) prefill (the window of 2048
+   bites), three prompt batches each, bf16 on the card, against the same
+   module with ``flash_attention_plain`` and ``moe_gmm_plain`` patched into
+   the model modules and the MoE routing of the plain run replayed: every
+   kernel call within 2e-2 of the largest |plain| of its plain version on
+   the model's own inputs, and last-token logits within 3e-2 of the
+   largest |logit| or within the model's floor where that is larger (the
+   gap that rounding the plain flash's output toward zero makes); greedy
+   agreement and the gap with each run routing itself printed;
+7. ``[prefill-long]``: one 4096-token prompt through full-depth bf16
+   ``LM.prefill`` of qwen2.5-3b and of recurrentgemma-2b (``max_len``
+   4096): host ms (median of 3 after a warm-up), exactly one flash launch
+   per attention layer, and flash's device ms per call by
+   ``torch.profiler``;
+8. LM serve path: ``repro_torch.launch.serve``'s engine on qwen2.5-3b (36
    layers), granite-moe-3b-a800m (32), mamba2-1.3b (48) and
    recurrentgemma-2b (26), each at full width and depth (bf16, weights
    from a generator seeded 0), 6 requests, 12 new tokens each, greedy;
@@ -49,8 +72,16 @@ failure:
    ssd layers x prefill calls, rglru_scan = rglru layers x prefill calls,
    and no launch of a kernel off the path; then a profiler breakdown of a
    decode step;
-7. one JSON line of per-kernel numbers, the card line, and last the
+9. one JSON line of per-kernel numbers, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
+
+``--only`` is a development aid: it runs the named phases of ``kernels``
+(3), ``cnn`` (4), ``lm`` (5), ``lm-bf16`` (6), ``prefill-long`` (7) and
+``serve`` (8), after the card line and the build, and prints neither the
+JSON line nor the ``ok`` line, so it never stands in for a full run.
+``--src DIR`` drives the ``repro_torch`` package under DIR instead of this
+checkout's ``src`` (``--only prefill-long --src <parent>/src`` times the
+kernels of another commit, unpacked under DIR, in the same call).
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout.  Imports nothing of JAX or of the reference package ``repro``.
@@ -58,10 +89,13 @@ checkout.  Imports nothing of JAX or of the reference package ``repro``.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import copy
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -72,7 +106,26 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+PHASES = ("kernels", "cnn", "lm", "lm-bf16", "prefill-long", "serve")
+CHECKOUT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+
+
+def parse_args() -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help=f"comma-separated phases among {', '.join(PHASES)} (default: all, and the JSON lines)")
+    ap.add_argument("--src", default=CHECKOUT_SRC,
+                    help="directory holding the repro_torch package to drive (default: this checkout's src)")
+    args = ap.parse_args()
+    args.only = [p for p in args.only.split(",") if p]
+    unknown = sorted(set(args.only) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; choose among {PHASES}")
+    return args
+
+
+ARGS = parse_args()
+sys.path.insert(0, os.path.abspath(ARGS.src))
 
 import numpy as np  # noqa: E402
 
@@ -97,6 +150,8 @@ from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain  # noqa:
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import attention as attention_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rglru as rglru_mod  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
 
@@ -142,6 +197,22 @@ RGLRU_RAGGED = ((2, 37, 45), (1, 5, 3), (3, 20, 130))
 RGLRU_TIMED = ((4, 24), (4, 512), (1, 4096))
 # flash at recurrentgemma-2b's local attention (H=10, KV=1, D=256, window 2048)
 RG_FLASH_TIMED = ((4, 24), (1, 4096))
+# the bf16 tensor-core path's ragged head dims and lengths
+FLASH_BF16_D = (24, 80, 256)
+FLASH_BF16_S = (1, 63, 65, 129)
+# device ms per call of each timed shape with the kernels as they were before
+# the bf16 tensor-core redesign of flash and moe_gmm (PERF.md's kernel table;
+# NVIDIA H100 80GB HBM3, 700.00 W), keyed by table and shape: printed in the
+# timing tables' `before` column, beside this run's times, and nowhere else
+BEFORE_MS = {
+    ("flash", (4, 24)): 0.01694, ("flash", (4, 512)): 0.58414, ("flash", (1, 4096)): 7.68650,
+    ("rg_flash", (4, 24)): 0.03146, ("rg_flash", (1, 4096)): 12.49169,
+    ("moe_gmm", "wi"): 0.27632, ("moe_gmm", "wo"): 0.16695,
+    ("ssd_scan", (4, 24)): 0.06028, ("ssd_scan", (4, 512)): 1.24866, ("ssd_scan", (1, 4096)): 8.35241,
+    ("rglru_scan", (4, 24)): 0.00216, ("rglru_scan", (4, 512)): 0.07085, ("rglru_scan", (1, 4096)): 0.47162,
+}
+# [prefill-long]: one prompt of this many tokens through full-depth bf16 prefill
+LONG_PROMPT = 4096
 
 
 def card_line() -> str:
@@ -214,16 +285,59 @@ def library_gemm_requant(af, wf, mult, bias, shift):
     return torch.clamp(torch.round(y / float(1 << shift)), -128, 127).to(torch.int8)
 
 
-def phase_build() -> None:
-    """Every kernel's nvcc started at once, one thread each."""
+def ptxas_functions(report: str) -> dict[str, dict]:
+    """Registers and spill bytes of each entry function in an ``nvcc
+    -Xptxas -v`` report, by mangled name."""
+    funcs: dict[str, dict] = {}
+    cur = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return funcs
+
+
+def short_kernel_name(mangled: str) -> str:
+    """``..._flash_attention_bf16_kernelILi128ELi64ELb1EE...`` ->
+    ``flash_attention_bf16_kernel<128, 64, 1>``."""
+    m = re.search(r"((?:flash_attention|moe_gmm)_bf16_kernel)I(.*?)EE", mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', m.group(2) + 'E'))}>"
+
+
+def phase_build(check_spills: bool = True) -> list[dict]:
+    """Every kernel's nvcc started at once, one thread each; then the
+    registers and spills of the bf16 tensor-core instantiations, which
+    must spill nothing (``check_spills``: and must exist)."""
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         infos = list(pool.map(_build.build, KERNELS))
+    tc = []
     for info in infos:
         how = f"built in {info.seconds:.2f} s" if info.seconds else "reused an earlier build"
         print(f"[build] {info.name}: {how} -> {info.path}")
         print("[build] nvcc -Xptxas -v:")
         for line in info.ptxas.strip().splitlines():
             print(f"    {line}")
+        for mangled, props in ptxas_functions(info.ptxas).items():
+            if "bf16_kernel" in mangled:
+                tc.append({"kernel": short_kernel_name(mangled), **props})
+    print(f"[build] bf16 tensor-core instantiations (template: DP, BC, ALIGNED for flash; MT, ALIGNED for "
+          f"moe_gmm): {len(tc)}")
+    for row in tc:
+        print(f"    {row['kernel']:44s} registers {row.get('registers', '?'):>3}, spill stores "
+              f"{row.get('spill_stores', '?')} B, spill loads {row.get('spill_loads', '?')} B")
+    spilled = [r["kernel"] for r in tc if r.get("spill_stores", 1) != 0]
+    if check_spills and (not tc or spilled):
+        raise AssertionError(f"bf16 tensor-core kernels that spill (or no report): {spilled or 'none found'}")
+    return tc
 
 
 def phase_gemm_kernel() -> dict:
@@ -334,17 +448,28 @@ def phase_cnn_path() -> dict:
     return {"cells": cells, "launches": sum(c["launches"] for c in cells)}
 
 
-def flash_operands(B, H, KV, Sq, Sk, D, dtype, seed, *, bshd=False):
+def off_by_one(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose storage starts one element past an
+    allocation: every row is one element off 16 bytes."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def flash_operands(B, H, KV, Sq, Sk, D, dtype, seed, *, bshd=False, misaligned=False):
     """q (B, H, Sq, D) and k, v (B, KV, Sk, D) on the card, rounded to
     ``dtype`` from float32 normals.  With ``bshd`` each is the (B, H, S, D)
-    view of (B, S, H, D) storage, as the model passes its activations."""
+    view of (B, S, H, D) storage, as the model passes its activations; with
+    ``misaligned`` each starts one element off 16 bytes."""
     rng = np.random.default_rng(seed)
 
     def mk(b, h, s, d):
         if bshd:
             x = rng.normal(size=(b, s, h, d)).astype(np.float32)
             return torch.from_numpy(x).to(DEV, dtype).transpose(1, 2)
-        return torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32)).to(DEV, dtype)
+        x = torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32)).to(DEV, dtype)
+        return off_by_one(x) if misaligned else x
 
     return mk(B, H, Sq, D), mk(B, KV, Sk, D), mk(B, KV, Sk, D)
 
@@ -354,30 +479,43 @@ def phase_flash_kernel() -> dict:
     the reference kernel test's tolerance; max |kernel - plain| printed."""
     cfg, rg = get_config(LM_ARCH), get_config(RG_ARCH)
     H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim_
-    cases = []  # (label, B, H, KV, Sq, Sk, D, dtype, kwargs, bshd)
+    cases = []  # (label, B, H, KV, Sq, Sk, D, dtype, kwargs, bshd, misaligned)
     for dtype in (torch.float32, torch.bfloat16):
         for B_, H_, KV_, S, D_ in FLASH_GRID:
             for causal in (True, False):
-                cases.append(("grid", B_, H_, KV_, S, S, D_, dtype, {"causal": causal}, False))
+                cases.append(("grid", B_, H_, KV_, S, S, D_, dtype, {"causal": causal}, False, False))
         for Sq, Sk in ((16, 64), (1, 40), (24, 300)):
-            cases.append(("q_offset", 2, 4, 2, Sq, Sk, 32, dtype, {"q_offset": Sk - Sq}, False))
+            cases.append(("q_offset", 2, 4, 2, Sq, Sk, 32, dtype, {"q_offset": Sk - Sq}, False, False))
         for Sq, Sk, off, causal, win in ((64, 64, 0, True, 16), (32, 64, 32, True, 8), (64, 64, 0, False, 24),
                                          (8, 32, 100, True, 4), (40, 300, 260, True, 70)):
             cases.append(("window", 2, 4, 2, Sq, Sk, 32, dtype,
-                          {"causal": causal, "q_offset": off, "window": win}, False))
+                          {"causal": causal, "q_offset": off, "window": win}, False, False))
         for S in (5, 24, 37):
             for causal in (True, False):
-                cases.append(("ragged", 2, 4, 1, S, S, 24, dtype, {"causal": causal}, False))
+                cases.append(("ragged", 2, 4, 1, S, S, 24, dtype, {"causal": causal}, False, False))
         for S in (4, 17, 24, 35):  # serving: the engine's prompt lengths and past them
-            cases.append(("serve", 4, H, KV, S, S, D, dtype, {"causal": True}, True))
+            cases.append(("serve", 4, H, KV, S, S, D, dtype, {"causal": True}, True, False))
             cases.append(("rgemma", 4, rg.n_heads, rg.kv_heads, S, S, rg.head_dim_, dtype,
-                          {"causal": True, "window": rg.local_window}, True))
+                          {"causal": True, "window": rg.local_window}, True, False))
         # recurrentgemma's head shape with a window that bites
         cases.append(("rgemma", 1, rg.n_heads, rg.kv_heads, 300, 300, rg.head_dim_, dtype,
-                      {"causal": True, "window": 64}, True))
+                      {"causal": True, "window": 64}, True, False))
+        # rows one element off 16 bytes: bf16 stages them by element loads
+        for D_, causal in ((128, True), (24, False), (256, True)):
+            cases.append(("misaligned", 2, 4, 2, 70, 70, D_, dtype, {"causal": causal}, False, True))
+        # rows with no valid key (positions < 0 under the causal mask) average v over all keys
+        for Sq, Sk, off in ((64, 64, -10), (100, 80, -30), (5, 130, -7)):
+            cases.append(("masked rows", 2, 4, 2, Sq, Sk, 64, dtype, {"causal": True, "q_offset": off}, False, False))
+    # the bf16 tensor-core path at ragged head dims and lengths, causal end-aligned and not
+    for D_ in FLASH_BF16_D:
+        for Sq in FLASH_BF16_S:
+            for Sk in FLASH_BF16_S:
+                cases.append((f"bf16 D={D_}", 1, 4, 2, Sq, Sk, D_, torch.bfloat16,
+                              {"causal": True, "q_offset": Sk - Sq}, False, False))
+                cases.append((f"bf16 D={D_}", 1, 4, 2, Sq, Sk, D_, torch.bfloat16, {"causal": False}, False, False))
     worst: dict[str, float] = {}
-    for i, (label, B, H_, KV_, Sq, Sk, D_, dtype, kw, bshd) in enumerate(cases):
-        q, k, v = flash_operands(B, H_, KV_, Sq, Sk, D_, dtype, seed=i, bshd=bshd)
+    for i, (label, B, H_, KV_, Sq, Sk, D_, dtype, kw, bshd, misaligned) in enumerate(cases):
+        q, k, v = flash_operands(B, H_, KV_, Sq, Sk, D_, dtype, seed=i, bshd=bshd, misaligned=misaligned)
         got = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         want = flash_attention_plain(q, k, v, **kw)
@@ -395,7 +533,7 @@ def phase_flash_kernel() -> dict:
     print(f"[kernels] flash_attention within tolerance of flash_attention_plain on {len(cases)} cases "
           f"(f32 atol=rtol=2e-5, bf16 2e-2); max |kernel - plain| per group:")
     for key, err in worst.items():
-        print(f"    {key:18s} {err:.3e}")
+        print(f"    {key:22s} {err:.3e}")
     return {
         "max_abs_err": max(worst.values()),
         "max_abs_err_f32": max(e for k, e in worst.items() if k.endswith("float32")),
@@ -415,13 +553,14 @@ def phase_flash_timing() -> list[dict]:
     H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim_
     print(f"[kernels] flash_attention at {LM_ARCH} prefill shapes (H={H}, KV={KV}, D={D}, bf16, causal), "
           "ms per call; graph = device time in a CUDA graph, eager = launched from Python, "
-          "library = F.scaled_dot_product_attention(is_causal, enable_gqa), timed only")
+          "library = F.scaled_dot_product_attention(is_causal, enable_gqa), timed only; "
+          "before = the CUDA-core kernel (PERF.md)")
     print(f"    {'B':>2s} {'S':>5s} {'kernel':>10s} {'kern eager':>10s} {'plain':>10s} "
-          f"{'library':>10s} {'bound':>10s}")
+          f"{'library':>10s} {'bound':>10s} {'':12s} {'before':>10s}")
     rows = []
     for B, S in FLASH_TIMED:
         q, k, v = flash_operands(B, H, KV, S, S, D, torch.bfloat16, seed=S, bshd=True)
-        iters = 200 if S <= 512 else 10
+        iters = 200 if S <= 512 else 20
         row = {
             "shape": [B, H, KV, S, D],
             "ms": graph_ms(lambda: flash_attention(q, k, v, causal=True), iters),
@@ -434,7 +573,8 @@ def phase_flash_timing() -> list[dict]:
         row["bound_ms"], row["bound_by"] = flash_bound_ms(B, H, KV, S, D)
         rows.append(row)
         print(f"    {B:>2d} {S:>5d} {row['ms']:>10.5f} {row['eager_ms']:>10.5f} {row['plain_ms']:>10.5f} "
-              f"{row['library_ms']:>10.5f} {row['bound_ms']:>10.6f} ({row['bound_by']})")
+              f"{row['library_ms']:>10.5f} {row['bound_ms']:>10.6f} {'(' + row['bound_by'] + ')':12s} "
+              f"{BEFORE_MS['flash', (B, S)]:>10.5f}")
     return rows
 
 
@@ -451,15 +591,15 @@ def phase_rg_flash_timing() -> list[dict]:
     H, KV, D, W = cfg.n_heads, cfg.kv_heads, cfg.head_dim_, cfg.local_window
     print(f"[kernels] flash_attention at {RG_ARCH} local attention (H={H}, KV={KV}, D={D}, bf16, causal, "
           f"window {W}), ms per call; library = F.scaled_dot_product_attention with the boolean window mask "
-          "(enable_gqa), timed only")
+          "(enable_gqa), timed only; before = the CUDA-core kernel (PERF.md)")
     print(f"    {'B':>2s} {'S':>5s} {'kernel':>10s} {'kern eager':>10s} {'plain':>10s} "
-          f"{'library':>10s} {'bound':>10s}")
+          f"{'library':>10s} {'bound':>10s} {'':12s} {'before':>10s}")
     rows = []
     for B, S in RG_FLASH_TIMED:
         q, k, v = flash_operands(B, H, KV, S, S, D, torch.bfloat16, seed=S + 1, bshd=True)
         i = torch.arange(S, device=DEV)
         mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
-        iters = 200 if S <= 512 else 10
+        iters = 200 if S <= 512 else 20
         row = {
             "shape": [B, H, KV, S, D, W],
             "ms": graph_ms(lambda: flash_attention(q, k, v, causal=True, window=W), iters),
@@ -475,20 +615,24 @@ def phase_rg_flash_timing() -> list[dict]:
         row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * B * H * D * window_pairs(S, W), BF16_FLOPS_S)
         rows.append(row)
         print(f"    {B:>2d} {S:>5d} {row['ms']:>10.5f} {row['eager_ms']:>10.5f} {row['plain_ms']:>10.5f} "
-              f"{row['library_ms']:>10.5f} {row['bound_ms']:>10.6f} ({row['bound_by']})")
+              f"{row['library_ms']:>10.5f} {row['bound_ms']:>10.6f} {'(' + row['bound_by'] + ')':12s} "
+              f"{BEFORE_MS['rg_flash', (B, S)]:>10.5f}")
     return rows
 
 
-def gmm_operands(E, C, D, F, dtype, seed, *, strided=False):
+def gmm_operands(E, C, D, F, dtype, seed, *, layout="dense"):
     """x (E, C, D) normal and w (E, D, F) normal / sqrt(D) on the card in
-    ``dtype``.  With ``strided`` x is the (E, C, D) view of (C, E, D)
-    storage."""
+    ``dtype``.  ``layout="strided"``: x is the (E, C, D) view of (C, E, D)
+    storage; ``"misaligned"``: x and w each start one element off 16
+    bytes."""
     rng = np.random.default_rng(seed)
     w = torch.from_numpy((rng.normal(size=(E, D, F)) / np.sqrt(D)).astype(np.float32)).to(DEV, dtype)
-    if strided:
+    if layout == "strided":
         x = torch.from_numpy(rng.normal(size=(C, E, D)).astype(np.float32)).to(DEV, dtype).transpose(0, 1)
     else:
         x = torch.from_numpy(rng.normal(size=(E, C, D)).astype(np.float32)).to(DEV, dtype)
+    if layout == "misaligned":
+        x, w = off_by_one(x), off_by_one(w)
     return x, w
 
 
@@ -503,15 +647,19 @@ def granite_gmm_shapes() -> list[tuple[str, int, int, int, int]]:
 
 def phase_moe_gmm_kernel() -> dict:
     """The grouped expert GEMM against its plain version on the card."""
-    cases = []  # (label, E, C, D, F, dtype, strided)
+    cases = []  # (label, E, C, D, F, dtype, layout)
     for dtype in (torch.float32, torch.bfloat16):
-        cases += [("grid", *s, dtype, False) for s in GMM_GRID]
-        cases += [("ragged", *s, dtype, st) for s in GMM_RAGGED for st in (False, True)]
-        cases += [("granite", *s[1:], dtype, False) for s in granite_gmm_shapes()]
-        cases += [("granite", s[1], 16, *s[3:], dtype, False) for s in granite_gmm_shapes()]  # a refill's C
+        cases += [("grid", *s, dtype, "dense") for s in GMM_GRID]
+        cases += [("ragged", *s, dtype, lay) for s in GMM_RAGGED for lay in ("dense", "strided")]
+        cases += [("granite", *s[1:], dtype, "dense") for s in granite_gmm_shapes()]
+        cases += [("granite", s[1], 16, *s[3:], dtype, "dense") for s in granite_gmm_shapes()]  # a refill's C
+        cases += [("granite C=8", s[1], 8, *s[3:], dtype, "dense") for s in granite_gmm_shapes()]  # one slot's decode
+        cases += [("granite", *s[1:], dtype, "strided") for s in granite_gmm_shapes()]  # (C, E, D) storage
+        cases += [("misaligned", *s, dtype, "misaligned") for s in ((3, 37, 64, 72), (2, 33, 100, 65))]
+        cases += [("misaligned", *s[1:], dtype, "misaligned") for s in granite_gmm_shapes()]
     worst: dict[str, float] = {}
-    for i, (label, E, C, D, F, dtype, strided) in enumerate(cases):
-        x, w = gmm_operands(E, C, D, F, dtype, seed=i, strided=strided)
+    for i, (label, E, C, D, F, dtype, layout) in enumerate(cases):
+        x, w = gmm_operands(E, C, D, F, dtype, seed=i, layout=layout)
         got = moe_gmm(x, w)
         torch.cuda.synchronize()
         want = moe_gmm_plain(x, w)
@@ -521,7 +669,7 @@ def phase_moe_gmm_kernel() -> dict:
         tol = GMM_TOL[dtype]
         if bool((diff > tol + tol * want.float().abs()).any()):
             raise AssertionError(
-                f"moe_gmm {label} {(E, C, D, F)} {dtype} strided={strided}: max |kernel - plain| "
+                f"moe_gmm {label} {(E, C, D, F)} {dtype} {layout}: max |kernel - plain| "
                 f"= {float(diff.max()):.3g} beyond atol = rtol = {tol}"
             )
         key = f"{label} {str(dtype).split('.')[-1]}"
@@ -529,7 +677,7 @@ def phase_moe_gmm_kernel() -> dict:
     print(f"[kernels] moe_gmm within tolerance of moe_gmm_plain on {len(cases)} cases "
           f"(f32 atol=rtol=1e-4, bf16 2e-2); max |kernel - plain| per group:")
     for key, err in worst.items():
-        print(f"    {key:16s} {err:.3e}")
+        print(f"    {key:22s} {err:.3e}")
     return {"max_abs_err": max(worst.values()),
             "max_abs_err_f32": max(e for k, e in worst.items() if k.endswith("float32"))}
 
@@ -537,9 +685,10 @@ def phase_moe_gmm_kernel() -> dict:
 def phase_moe_gmm_timing() -> list[dict]:
     """Times at granite-moe-3b-a800m's serving shapes, bf16."""
     print(f"[kernels] moe_gmm at {MOE_ARCH} serving shapes (bf16), ms per call; graph = device time in a "
-          "CUDA graph, eager = launched from Python, library = torch.bmm, timed only")
+          "CUDA graph, eager = launched from Python, library = torch.bmm, timed only; before = the CUDA-core kernel "
+          "(PERF.md)")
     print(f"    {'GEMM':>4s} {'E':>3s} {'C':>3s} {'D':>5s} {'F':>5s} {'kernel':>9s} {'kern eager':>10s} "
-          f"{'plain':>9s} {'library':>9s} {'bound':>9s}")
+          f"{'plain':>9s} {'library':>9s} {'bound':>9s} {'':9s} {'before':>9s}")
     rows = []
     for name, E, C, D, F in granite_gmm_shapes():
         x, w = gmm_operands(E, C, D, F, torch.bfloat16, seed=D)
@@ -555,7 +704,8 @@ def phase_moe_gmm_timing() -> list[dict]:
                                                  BF16_FLOPS_S)
         rows.append(row)
         print(f"    {name:>4s} {E:>3d} {C:>3d} {D:>5d} {F:>5d} {row['ms']:>9.5f} {row['eager_ms']:>10.5f} "
-              f"{row['plain_ms']:>9.5f} {row['library_ms']:>9.5f} {row['bound_ms']:>9.6f} ({row['bound_by']})")
+              f"{row['plain_ms']:>9.5f} {row['library_ms']:>9.5f} {row['bound_ms']:>9.6f} "
+              f"{'(' + row['bound_by'] + ')':9s} {BEFORE_MS['moe_gmm', name]:>9.5f}")
     return rows
 
 
@@ -610,8 +760,10 @@ def phase_ssd_timing() -> list[dict]:
     cfg = get_config(SSD_ARCH)
     H, P, N = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
     print(f"[kernels] ssd_scan at {SSD_ARCH} prefill shapes (H={H}, P={P}, N={N}; xb, a f32, B/C bf16), ms per "
-          "call; graph = device time in a CUDA graph, eager = launched from Python; no library call computes SSD")
-    print(f"    {'B':>2s} {'T':>5s} {'kernel':>10s} {'kern eager':>10s} {'plain':>10s} {'bound':>10s}")
+          "call; graph = device time in a CUDA graph, eager = launched from Python; no library call computes SSD; "
+          "before = the same kernel's earlier time (PERF.md)")
+    print(f"    {'B':>2s} {'T':>5s} {'kernel':>10s} {'kern eager':>10s} {'plain':>10s} {'bound':>10s} {'':12s} "
+          f"{'before':>10s}")
     rows = []
     for B, T in SSD_TIMED:
         xb, a, Bm, Cm = ssd_operands(B, H, T, P, N, torch.bfloat16, seed=T)
@@ -630,7 +782,7 @@ def phase_ssd_timing() -> list[dict]:
         row["bound_ms"], row["bound_by"] = bound(nbytes, 5 * B * H * T * P * N, FP32_FLOPS_S)
         rows.append(row)
         print(f"    {B:>2d} {T:>5d} {row['ms']:>10.5f} {row['eager_ms']:>10.5f} {row['plain_ms']:>10.5f} "
-              f"{row['bound_ms']:>10.6f} ({row['bound_by']})")
+              f"{row['bound_ms']:>10.6f} {'(' + row['bound_by'] + ')':12s} {BEFORE_MS['ssd_scan', (B, T)]:>10.5f}")
     return rows
 
 
@@ -686,8 +838,10 @@ def phase_rglru_timing() -> list[dict]:
     passes them."""
     W = get_config(RG_ARCH).lru_width
     print(f"[kernels] rglru_scan at {RG_ARCH} prefill shapes (W={W}; a, b f32), ms per call; graph = device "
-          "time in a CUDA graph, eager = launched from Python; no library call computes the recurrence")
-    print(f"    {'B':>2s} {'T':>5s} {'kernel':>10s} {'kern eager':>10s} {'plain':>10s} {'bound':>10s}")
+          "time in a CUDA graph, eager = launched from Python; no library call computes the recurrence; "
+          "before = the same kernel's earlier time (PERF.md)")
+    print(f"    {'B':>2s} {'T':>5s} {'kernel':>10s} {'kern eager':>10s} {'plain':>10s} {'bound':>10s} {'':12s} "
+          f"{'before':>10s}")
     rows = []
     for B, T in RGLRU_TIMED:
         a, b = rglru_operands(B, T, W, torch.float32, seed=T)
@@ -705,7 +859,7 @@ def phase_rglru_timing() -> list[dict]:
         row["bound_ms"], row["bound_by"] = bound(12 * B * T * W, 2 * B * T * W, FP32_FLOPS_S)
         rows.append(row)
         print(f"    {B:>2d} {T:>5d} {row['ms']:>10.5f} {row['eager_ms']:>10.5f} {row['plain_ms']:>10.5f} "
-              f"{row['bound_ms']:>10.6f} ({row['bound_by']})")
+              f"{row['bound_ms']:>10.6f} {'(' + row['bound_by'] + ')':12s} {BEFORE_MS['rglru_scan', (B, T)]:>10.5f}")
     return rows
 
 
@@ -849,6 +1003,203 @@ def phase_lm_parity(arch: str, *, n_layers: int = 2, prompt: int = 16, prepare=N
     gc.collect()
     torch.cuda.empty_cache()
     return {"max_abs_err": worst, "launches": counts}
+
+
+@contextlib.contextmanager
+def kernels_as(flash, gmm):
+    """The model modules' flash and moe_gmm names bound to ``flash`` and
+    ``gmm`` for the duration: this script's comparisons only, the package
+    has no switch."""
+    saved = attention_mod.flash_attention, moe_mod.moe_gmm
+    attention_mod.flash_attention, moe_mod.moe_gmm = flash, gmm
+    try:
+        yield
+    finally:
+        attention_mod.flash_attention, moe_mod.moe_gmm = saved
+
+
+def on_inputs(kernel, plain, tol: float, worst: dict, name: str):
+    """``kernel`` that also holds each call's output against ``plain`` on
+    the same inputs (the model's own activations, at its shapes): max
+    |kernel - plain| within ``tol`` of max |plain|, the kernel grid's bf16
+    atol taken to the scale of these activations (an attention output near
+    0 carries an error in proportion to |v|, not to itself).  The largest
+    ratio goes to ``worst[name]``.  The plain call launches nothing."""
+    def call(*args, **kw):
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw).float()
+        ratio = float((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+        worst[name] = max(worst[name], ratio)
+        if ratio > tol:
+            raise AssertionError(f"{name} on the model's inputs {tuple(args[0].shape)}: max |kernel - plain| "
+                                 f"/ max |plain| = {ratio:.3g} beyond {tol}")
+        return got
+    return call
+
+
+@contextlib.contextmanager
+def routing(record: list | None = None, replay: list | None = None):
+    """The MoE layers' routing decisions appended to ``record``, one (B, S,
+    K) tensor of slots per layer call; or, with ``replay``, the slots of an
+    earlier run fed back in order, each kept slot's gate taken from this
+    run's own router probabilities and renormalised as ``_route`` does.
+    This script's comparisons only, the package has no switch."""
+    route, pending = moe_mod._route, list(replay or [])
+
+    def recorded(probs, K, C):
+        slots, gates = route(probs, K, C)
+        if record is not None:
+            record.append(slots)
+        return slots, gates
+
+    def replayed(probs, K, C):
+        slots = pending.pop(0)
+        expert = torch.div(slots, C, rounding_mode="floor").clamp_min(0).long()
+        gates = torch.where(slots >= 0, probs.gather(-1, expert), 0.0)
+        return slots, gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
+
+    moe_mod._route = replayed if replay is not None else recorded
+    try:
+        yield
+    finally:
+        moe_mod._route = route
+    if pending:
+        raise AssertionError(f"routing replay: {len(pending)} recorded layer calls left over")
+
+
+def flash_plain_toward_zero(q, k, v, **kw):
+    """The plain flash with its fp32 output rounded to bf16 toward zero
+    instead of to nearest: for every element one of the two bf16 values
+    nearest the exact output, as a correct bf16 kernel may return."""
+    o = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    return (o.view(torch.int32) & ~0xFFFF).view(torch.float32).to(torch.bfloat16)
+
+
+def phase_lm_bf16(arch: str, *, n_layers: int = 2, batch: int = 4, prompt: int = 512, prepare=None,
+                  seeds: tuple[int, ...] = (1, 2, 3)) -> dict:
+    """``arch`` at full width, ``n_layers`` layers, bf16 on the card, one
+    prompt batch per seed in ``seeds``:
+
+    * every kernel call of the prefill through the kernels against its
+      plain version on the same inputs (:func:`on_inputs`);
+    * the prefill's last-token logits through the kernels against the
+      same module with the plain flash and moe_gmm, the MoE routing of the
+      plain run replayed in the kernels' run (a routing decision is
+      discrete: one ulp can move a token past an expert's capacity), within
+      3e-2 of the largest |logit|, or within the model's floor if that is
+      larger: how far the logits move when the plain flash's output is
+      rounded toward zero (:func:`flash_plain_toward_zero`), a difference
+      no check on the logits can tell from a correct kernel's.
+
+    Also printed: greedy agreement, for an MoE model the gap with each run
+    routing itself, and for the first seed both bf16 runs against an fp32
+    run of the same weights.  ``prepare(lm)`` edits the weights (on the
+    CPU, before the move)."""
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    t0 = time.perf_counter()
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    if prepare is not None:
+        prepare(cpu)
+    lm32 = LM(cfg.replace(dtype="float32"), device="cpu", generator=torch.Generator().manual_seed(0))
+    lm32.load_state_dict({k: v.float() for k, v in cpu.state_dict().items()})
+    lm, lm32 = cpu.to(DEV), lm32.to(DEV)
+    worst = {"flash_attention": 0.0, "moe_gmm": 0.0}
+    flash_checked = on_inputs(flash_attention, flash_attention_plain, FLASH_TOL[torch.bfloat16], worst,
+                              "flash_attention")
+    gmm_checked = on_inputs(moe_gmm, moe_gmm_plain, GMM_TOL[torch.bfloat16], worst, "moe_gmm")
+
+    def prefill(model, toks, flash, gmm, **route):
+        with torch.inference_mode(), kernels_as(flash, gmm), routing(**route):
+            out, _ = model.prefill(toks, max_len=prompt)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"bf16 LM {arch}: logits not finite")
+        return out.float()
+
+    gaps, floors = [], []
+    for seed in seeds:
+        toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (batch, prompt))).to(DEV)
+        routes: list = []
+        want = prefill(lm, toks, flash_attention_plain, moe_gmm_plain, record=routes)
+        reset_counts()
+        got = prefill(lm, toks, flash_checked, gmm_checked, replay=routes)
+        counts = read_counts()
+        check_counts(f"bf16 LM {arch}", counts, expected_counts(cfg, prefills=1, decode_steps=0))
+        top = float(want.abs().max())
+
+        def gap(a, b):
+            return float((a - b).abs().max()) / top
+
+        gaps.append(gap(got, want))
+        floors.append(gap(prefill(lm, toks, flash_plain_toward_zero, moe_gmm_plain, replay=routes), want))
+        limit = max(3e-2, floors[-1])
+        line = (f"[lm-bf16] {cfg.name} full width x {n_layers} layers bf16, prefill ({batch}, {prompt}), seed {seed}: "
+                f"kernels vs plain flash/moe_gmm max |logit gap| / max |logit| = {gaps[-1]:.3e} (limit {limit:.3e}: "
+                f"3e-2 or the floor {floors[-1]:.3e}; max |logit| {top:.3f}), greedy agreement "
+                f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.2f}")
+        if cfg.is_moe:
+            own: list = []
+            free = prefill(lm, toks, flash_attention, moe_gmm, record=own)
+            moved = [f"{float((a != b).float().mean()):.3f}" for a, b in zip(own, routes)]
+            line += (f"; each run routing itself {gap(free, want):.3e}, share of routing slots that moved "
+                     f"per layer {moved}")
+        if seed == seeds[0]:
+            truth = prefill(lm32, toks, flash_attention_plain, moe_gmm_plain)
+            line += f"; bf16 vs an fp32 run of the same weights: plain {gap(want, truth):.3e}, kernels {gap(got, truth):.3e}"
+        print(line + f"; launches {counts}")
+        if gaps[-1] > limit:
+            raise AssertionError(f"bf16 LM {arch} seed {seed}: logit gap {gaps[-1]:.3g} of max |logit| beyond {limit:.3g}")
+    print(f"[lm-bf16] {cfg.name}: every kernel call within 2e-2 of its plain version on the model's own inputs, "
+          f"max |kernel - plain| / max |plain| {', '.join(f'{k} {v:.3e}' for k, v in worst.items() if v)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del cpu, lm, lm32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"gap": max(gaps), "floor": max(floors), **worst}
+
+
+def phase_prefill_long(arch: str) -> dict:
+    """One ``LONG_PROMPT``-token prompt through full-depth bf16 ``LM.prefill``
+    (``max_len`` = the prompt): host ms between syncs (median of 3 after a
+    warm-up), flash launches per call (one per attention layer), and
+    flash's device ms per call from a ``torch.profiler`` pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config(arch)
+    lm = LM(cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (1, LONG_PROMPT))).to(DEV)
+    want = expected_counts(cfg, prefills=1, decode_steps=0)
+    ms = []
+    with torch.inference_mode():
+        lg, _ = lm.prefill(toks, max_len=LONG_PROMPT)  # warm-up
+        for _ in range(3):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            lg, _ = lm.prefill(toks, max_len=LONG_PROMPT)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check_counts(f"prefill-long {arch}", read_counts(), want)
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"prefill-long {arch}: logits not finite")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            lm.prefill(toks, max_len=LONG_PROMPT)
+            torch.cuda.synchronize()
+    flash_us = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and "flash_attention" in e.name]
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    med = sorted(ms)[1]
+    flash_ms = sum(flash_us) / 1e3 / max(len(flash_us), 1) if flash_us else float("nan")
+    print(f"[prefill-long] {cfg.name} full depth ({cfg.n_layers} layers) bf16, one {LONG_PROMPT}-token prompt, "
+          f"max_len {LONG_PROMPT}: prefill ms median {med:.3f} (runs {', '.join(f'{t:.3f}' for t in ms)}); "
+          f"flash launches per call {want['flash_attention']} (one per attention layer); flash device ms per call "
+          f"{flash_ms:.5f} over {len(flash_us)} launches in the profiled call ({sum(flash_us) / 1e3:.3f} ms of "
+          f"{busy_us / 1e3:.3f} ms device busy)")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill_ms": med, "flash_ms": flash_ms, "flash_launches": want["flash_attention"]}
 
 
 class TimedLM:
@@ -999,30 +1350,48 @@ def main() -> None:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    print(f"[card] driving repro_torch from {os.path.abspath(ARGS.src)}; phases {', '.join(ARGS.only)}")
     resolve_device("cuda")  # IEEE fp32 matmuls on the card (TF32 off) for every comparison
 
-    phase_build()
-    gemm = phase_gemm_kernel()
-    flash = phase_flash_kernel()
-    flash_rows = phase_flash_timing()
-    gmm = phase_moe_gmm_kernel()
-    gmm_rows = phase_moe_gmm_timing()
-    ssd = phase_ssd_kernel()
-    ssd_rows = phase_ssd_timing()
-    rglru = phase_rglru_kernel()
-    rglru_rows = phase_rglru_timing()
-    rg_flash_rows = phase_rg_flash_timing()
-    cnn = phase_cnn_path()
-    for arch in (LM_ARCH, MOE_ARCH, SSD_ARCH):
-        phase_lm_parity(arch)
-    # one (rglru, rglru, local_attn) period; the prompt fills the 2048-slot
-    # ring (S % L == 0, clear of ROADMAP C-ref-6) and decode wraps it
-    phase_lm_parity(RG_ARCH, n_layers=3, prompt=get_config(RG_ARCH).local_window,
-                    prepare=lambda lm: draw_rglru_decays(lm, seed=1))
-    served = {arch: phase_serve(arch) for arch in (LM_ARCH, MOE_ARCH, SSD_ARCH, RG_ARCH)}
+    phase_build(check_spills=os.path.abspath(ARGS.src) == CHECKOUT_SRC)
+    only = set(ARGS.only)
+    if "kernels" in only:
+        gemm = phase_gemm_kernel()
+        flash = phase_flash_kernel()
+        flash_rows = phase_flash_timing()
+        gmm = phase_moe_gmm_kernel()
+        gmm_rows = phase_moe_gmm_timing()
+        ssd = phase_ssd_kernel()
+        ssd_rows = phase_ssd_timing()
+        rglru = phase_rglru_kernel()
+        rglru_rows = phase_rglru_timing()
+        rg_flash_rows = phase_rg_flash_timing()
+    if "cnn" in only:
+        cnn = phase_cnn_path()
+    draw = lambda lm: draw_rglru_decays(lm, seed=1)  # noqa: E731
+    if "lm" in only:
+        for arch in (LM_ARCH, MOE_ARCH, SSD_ARCH):
+            phase_lm_parity(arch)
+        # one (rglru, rglru, local_attn) period; the prompt fills the 2048-slot
+        # ring (S % L == 0, clear of ROADMAP C-ref-6) and decode wraps it
+        phase_lm_parity(RG_ARCH, n_layers=3, prompt=get_config(RG_ARCH).local_window, prepare=draw)
+    if "lm-bf16" in only:
+        phase_lm_bf16(LM_ARCH)
+        phase_lm_bf16(MOE_ARCH)
+        # one (rglru, rglru, local_attn) period over 4096 tokens: the window of 2048 bites
+        phase_lm_bf16(RG_ARCH, n_layers=3, batch=2, prompt=LONG_PROMPT, prepare=draw)
+    if "prefill-long" in only:
+        for arch in (LM_ARCH, RG_ARCH):
+            phase_prefill_long(arch)
+    if "serve" in only:
+        served = {arch: phase_serve(arch) for arch in (LM_ARCH, MOE_ARCH, SSD_ARCH, RG_ARCH)}
+    if only != set(PHASES):
+        print(f"[only] {', '.join(ARGS.only)} passed; no JSON lines without every phase")
+        return
 
     def shapes(rows):
-        return [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} for r in rows]
+        return [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for r in rows]
 
     big = max(gemm["rows"], key=lambda r: r["shape"][1] * r["shape"][2])
     entries = [

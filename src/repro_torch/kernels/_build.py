@@ -1,10 +1,12 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each kernel is one ``csrc/<name>.cu`` with a plain ``extern "C"``
-launcher.  At first use it is compiled for Hopper (``sm_90a``) into a
-shared library under the build directory — ``build/repro_torch/`` at the
-root of the checkout, or ``$REPRO_TORCH_BUILD_DIR`` — keyed by a hash of
-the source and the compiler flags, so an edited source rebuilds and an
+launcher; it may include local headers (``#include "mma_sm90.cuh"``, next
+to it in ``csrc/``).  At first use it is compiled for Hopper (``sm_90a``)
+into a shared library under the build directory — ``build/repro_torch/``
+at the root of the checkout, or ``$REPRO_TORCH_BUILD_DIR`` — keyed by a
+hash of the source, every local header it includes and the compiler
+flags (:func:`digest`), so an edited source or header rebuilds and an
 unchanged one is loaded as built.  Two processes building at once each
 compile to a private temporary name and ``os.replace`` it into place.
 
@@ -18,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,7 +28,7 @@ import uuid
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["BuildInfo", "build", "load"]
+__all__ = ["BuildInfo", "build", "digest", "load", "local_includes"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = (
@@ -33,6 +36,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 @dataclass(frozen=True)
@@ -63,18 +67,45 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def local_includes(src: Path) -> list[Path]:
+    """The files ``src`` includes with ``#include "..."``, resolved next to
+    the file that includes them, transitively, each once, in first-seen
+    order (system headers in ``<...>`` are not followed)."""
+    seen: list[Path] = []
+    todo = [src]
+    while todo:
+        cur = todo.pop(0)
+        for rel in _INCLUDE.findall(cur.read_text()):
+            dep = (cur.parent / rel).resolve()
+            if dep not in seen:
+                seen.append(dep)
+                todo.append(dep)
+    return seen
+
+
+def digest(name: str, csrc: Path = CSRC) -> str:
+    """The build key of ``<csrc>/<name>.cu``: a hash of its bytes, of every
+    local header it includes, and of the compiler flags."""
+    src = csrc / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for dep in local_includes(src):
+        h.update(dep.name.encode() + b"\0" + dep.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 @functools.lru_cache(maxsize=None)
 def build(name: str) -> BuildInfo:
-    """Compile ``csrc/<name>.cu`` (once per source hash) and return it."""
+    """Compile ``csrc/<name>.cu`` (once per :func:`digest`) and return it."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = digest(name)
     out_dir = _build_dir()
-    lib = out_dir / f"{name}-{digest}.so"
-    log = out_dir / f"{name}-{digest}.ptxas.txt"
+    lib = out_dir / f"{name}-{key}.so"
+    log = out_dir / f"{name}-{key}.ptxas.txt"
     if lib.exists():
         return BuildInfo(name, lib, 0.0, log.read_text() if log.exists() else "")
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{name}-{digest}.{os.getpid()}.{uuid.uuid4().hex}.so"
+    tmp = out_dir / f".{name}-{key}.{os.getpid()}.{uuid.uuid4().hex}.so"
     t0 = time.perf_counter()
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],

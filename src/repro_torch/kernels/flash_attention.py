@@ -25,13 +25,16 @@ or raises.
 
 The kernel replaces ``src/repro/kernels/flash_attention.py::_kernel``.
 It is bound by bytes (and launch latency) at the serving engine's short
-prompts and by tensor-core flops at long prefill; this first version
-computes in fp32 on the CUDA cores and is built to be right — the source
-says what its design does and what it leaves for later.  It takes any
-Sq, Sk >= 1 and D <= 256 (the Pallas kernel asserts exact tiling), and
+prompts and by tensor-core flops at long prefill.  bf16 runs an FA2-style
+tensor-core kernel (``mma.sync`` on bf16, ``cp.async`` K/V pipeline); f32
+runs a CUDA-core kernel, since TF32 would miss the 2e-5 tolerance.  The
+source says what each design does and what it leaves for later.  It takes
+any Sq, Sk >= 1 and D <= 256 (the Pallas kernel asserts exact tiling), and
 reads every operand through its strides, so the model passes its
 ``(B, S, H, D)`` activations as ``(B, H, S, D)`` views without a copy.
-The output has q's memory layout.
+bf16 operands whose rows start on 16 bytes are staged by 16-byte copies,
+others by element loads, in the same kernel.  The output has q's memory
+layout.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _layout
 
 __all__ = ["flash_attention", "flash_attention_plain"]
 
@@ -113,7 +116,7 @@ def flash_attention_plain(
 def _launcher():
     fn = _build.load("flash_attention").flash_attention_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, *([ll] * 12), i, i, i, i, ctypes.c_float, p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, *([ll] * 12), i, i, i, i, ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -161,10 +164,11 @@ def flash_attention(
         return out
     has_window = window is not None
     win = max(-_INT_MAX, min(int(window), _INT_MAX)) if has_window else 0
+    bf16 = q.dtype == torch.bfloat16
     with torch.cuda.device(q.device):
         err = _launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, H, KV, Sq, Sk, D,
+            int(bf16), int(bf16 and _layout.rows_16b_aligned(q, k, v, out)), B, H, KV, Sq, Sk, D,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),

@@ -14,11 +14,14 @@ On a CUDA tensor :func:`moe_gmm` launches the hand-written CUDA kernel in
 two: a CUDA call launches or raises.
 
 The kernel replaces ``src/repro/kernels/moe_gmm.py::_kernel``.  At the
-serving shapes it is bound by the bytes of the expert weights, which it
-reads once per 32 capacity slots; this first version computes in fp32 on
-the CUDA cores and is built to be right — the source says what its design
-does and what it leaves for later.  It takes any C, D and F (the Pallas
-kernel asserts exact tiling) and reads x and w through their strides.
+serving shapes it is bound by the bytes of the expert weights.  bf16 runs a
+tensor-core grouped GEMM (``mma.sync`` on bf16) that streams w through a
+4-stage ``cp.async`` ring; f32 runs a CUDA-core kernel, since TF32 would
+miss the 1e-4 tolerance.  The source says what each design does and what
+it leaves for later.  It takes any C, D and F (the Pallas kernel asserts
+exact tiling) and reads x and w through their strides; bf16 operands whose
+rows start on 16 bytes are staged by 16-byte copies, others by element
+loads, in the same kernel.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, _layout
 
 __all__ = ["moe_gmm", "moe_gmm_plain"]
 
@@ -54,7 +57,7 @@ def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _launcher():
     fn = _build.load("moe_gmm").moe_gmm_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, i, i, i, i, i, *([ll] * 9), p]
+    fn.argtypes = [p, p, p, i, i, i, i, i, i, *([ll] * 9), p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -79,9 +82,11 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    bf16 = x.dtype == torch.bfloat16
     with torch.cuda.device(x.device):
         err = _launcher()(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), E, C, D, F,
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), int(bf16), int(bf16 and _layout.rows_16b_aligned(x, w, y)),
+            E, C, D, F,
             *x.stride(), *w.stride(), *y.stride(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )

@@ -1,5 +1,6 @@
 """The port on the CUDA card: the Hopper kernels against their plain
-versions, one net through the CNN main path bit-exact, a 2-layer LM
+versions (the bf16 tensor-core paths also at ragged head dims and
+lengths, on misaligned rows and on rows with no valid key), one net through the CNN main path bit-exact, a 2-layer LM
 whose prefill goes through the flash kernel, 2-layer MoE and mamba2
 LMs through ``moe_gmm`` and ``ssd_scan``, and a 3-layer recurrentgemma
 LM through ``rglru_scan`` and the windowed flash kernel.  Marked ``cuda``; without a
@@ -126,6 +127,53 @@ def test_flash_kernel_offset_and_window(cuda, Sq, Sk, q_offset, causal, window):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
+def _off_by_one(x):
+    """A contiguous copy of ``x`` starting one element past an allocation:
+    every row one element off 16 bytes, so bf16 is staged by element loads."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk", [(1, 1), (1, 129), (63, 65), (65, 63), (129, 129), (129, 1)])
+@pytest.mark.parametrize("D", [24, 80, 256])
+def test_flash_bf16_ragged_head_dims_and_lengths(cuda, D, Sq, Sk, causal):
+    """The tensor-core path zero-fills D to a multiple of 16 and masks
+    ragged Sq, Sk; causal is end-aligned (q_offset = Sk - Sq, so Sq > Sk
+    leaves rows with no valid key)."""
+    q, k, v = _qkv(cuda, 1, 4, 2, Sq, Sk, D, torch.bfloat16, seed=D + Sq * Sk)
+    kw = {"causal": causal, "q_offset": Sk - Sq if causal else 0}
+    got = flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v, **kw).float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [24, 128, 256])
+def test_flash_kernel_takes_misaligned_rows(cuda, D, dtype):
+    q, k, v = (_off_by_one(t) for t in _qkv(cuda, 2, 4, 2, 70, 70, D, dtype, seed=D))
+    assert q.data_ptr() % 16 != 0
+    got = flash_attention(q, k, v, causal=True)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v, causal=True).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,q_offset", [(64, 64, -10), (100, 80, -30), (5, 130, -7)])
+def test_flash_kernel_rows_with_no_valid_key(cuda, Sq, Sk, q_offset, dtype):
+    """Rows at negative positions under the causal mask score -1e30
+    everywhere and average v over all Sk keys, as both references do."""
+    q, k, v = _qkv(cuda, 2, 4, 2, Sq, Sk, 64, dtype, seed=Sq - q_offset)
+    got = flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    want = flash_attention_plain(q, k, v, causal=True, q_offset=q_offset)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    n_dead = min(Sq, -q_offset)
+    mean_v = v.float().mean(dim=2, keepdim=True).repeat_interleave(2, dim=1)
+    torch.testing.assert_close(got[:, :, :n_dead].float(), mean_v.expand(-1, -1, n_dead, -1), atol=tol, rtol=tol)
+
+
 def test_flash_kernel_rejects_mixed_dtypes_and_devices(cuda):
     q = torch.zeros((1, 2, 4, 16), device=cuda)
     with pytest.raises(TypeError):
@@ -175,6 +223,24 @@ def test_moe_gmm_kernel_matches_plain_version(cuda, E, C, D, F, dtype):
     # x as the (E, C, D) view of (C, E, D) storage
     xt = x.transpose(0, 1).contiguous().transpose(0, 1)
     torch.testing.assert_close(moe_gmm(xt, w).float(), moe_gmm_plain(x, w).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("layout", ["misaligned", "strided"])
+@pytest.mark.parametrize("E,C,D,F", [(40, 8, 1536, 512), (40, 8, 512, 1536), (40, 32, 1536, 512), (3, 37, 64, 72),
+                                     (2, 33, 100, 65)])
+def test_moe_gmm_bf16_decode_slot_and_layouts(cuda, E, C, D, F, layout):
+    """granite's one-slot decode (C = 8) and its serving shapes, with x
+    and w one element off 16 bytes (element loads) or x as the (E, C, D)
+    view of (C, E, D) storage (16-byte copies through the strides)."""
+    rng = np.random.default_rng(E * C + D)
+    x = torch.from_numpy(rng.normal(size=(E, C, D)).astype(np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy((rng.normal(size=(E, D, F)) / np.sqrt(D)).astype(np.float32)).to(cuda, torch.bfloat16)
+    if layout == "misaligned":
+        x, w = _off_by_one(x), _off_by_one(w)
+    else:
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    got = moe_gmm(x, w)
+    torch.testing.assert_close(got.float(), moe_gmm_plain(x, w).float(), atol=2e-2, rtol=2e-2)
 
 
 SSD_SHAPES = [(1, 2, 32, 8, 16), (2, 4, 64, 16, 32), (1, 3, 37, 8, 16), (2, 2, 5, 16, 16), (4, 64, 24, 64, 128),
