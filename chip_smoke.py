@@ -11,7 +11,8 @@ failure:
 2. build: every CUDA kernel of the main paths compiled by ``nvcc`` from
    ``src/repro_torch/kernels/csrc``, one compiler per source, all started
    together (build seconds, ``-Xptxas -v``), and no spill store in any
-   bf16 tensor-core instantiation (registers and spills printed);
+   bf16 tensor-core instantiation or scan kernel (registers and spills
+   printed);
 3. kernels, each on the card against its plain PyTorch version:
    ``matmul_requant`` bit-exact (tolerance 0: integer arithmetic) on the
    CNN path's shapes, the test grid and ragged shapes, both roundings,
@@ -25,14 +26,19 @@ failure:
    granite-moe-3b-a800m's shapes (C = 32, a refill's 16 and one slot's
    decode, 8); ``ssd_scan`` (y and the final state) within 2e-4 of its
    plain version and of the sequential oracle on the kernel test grid,
-   ragged T and mamba2-1.3b's shapes; ``rglru_scan`` within 1e-4 of its
-   plain version and of the sequential oracle on the kernel test grid,
-   ragged T and W, strided and bf16 operands and recurrentgemma-2b's
-   shapes; then times of each at its path's shapes (flash also at
-   recurrentgemma-2b's local-attention shape) beside the plain version,
-   one PyTorch library call where there is one, the bound, and, printed
-   only, the time the same kernel took before the bf16 redesign
-   (``BEFORE_MS``, from ``PERF.md``'s kernel table);
+   ragged T and mamba2-1.3b's shapes, among them many chunks at full
+   width ((1, 4096), (4, 512) and a ragged (1, 4095)); ``rglru_scan``
+   within 1e-4 of its plain version and of the sequential oracle on the
+   kernel test grid, ragged T and W, strided and bf16 operands and
+   recurrentgemma-2b's shapes (T on each side of one 64-step chunk, and
+   (1, 4096), (1, 4097)); then times of each at its path's shapes (flash
+   also at recurrentgemma-2b's local-attention shape) beside the plain
+   version, one PyTorch library call where there is one, the bound, and,
+   printed only, the time the same kernel took before its redesign
+   (``BEFORE_MS``, from ``PERF.md``'s kernel table); under each scan row,
+   the device kernels one call issues, by ``torch.profiler``; and
+   ``ssd_scan``'s time with each count of heads per output block, the
+   data behind the wrapper's ``heads_per_block``;
 4. CNN path: the four MLPerf-Tiny nets x {gap9, diana} through
    ``repro_torch.core.dispatch`` -> ``repro_torch.backend.lower`` (default
    device) -> 4 requests through ``CompiledModel.run``, each output
@@ -46,21 +52,28 @@ failure:
    steps (recurrentgemma's wrap the ring) on the card (the kernels) against
    the same module on the CPU (plain versions), logits within 1e-3 and
    identical tokens;
-6. bf16 LM check of the tensor-core kernels: qwen2.5-3b and
-   granite-moe-3b-a800m at full width, 2 layers, a (4, 512) prefill, and
+6. bf16 LM check of the kernels: qwen2.5-3b, granite-moe-3b-a800m and
+   mamba2-1.3b at full width, 2 layers, a (4, 512) prefill, and
    recurrentgemma-2b, 3 layers, a (2, 4096) prefill (the window of 2048
    bites), three prompt batches each, bf16 on the card, against the same
-   module with ``flash_attention_plain`` and ``moe_gmm_plain`` patched into
-   the model modules and the MoE routing of the plain run replayed: every
-   kernel call within 2e-2 of the largest |plain| of its plain version on
-   the model's own inputs, and last-token logits within 3e-2 of the
+   module with the four plain versions (``flash_attention_plain``,
+   ``moe_gmm_plain``, ``ssd_scan_plain``, ``rglru_scan_plain``) patched
+   into the model modules and the MoE routing of the plain run replayed:
+   every kernel call on the model's own inputs within its limit of the
+   largest |plain| of its plain version (flash and moe_gmm 2e-2, the bf16
+   kernel grid's; ssd_scan 2e-4 and rglru_scan 1e-4, their kernel
+   grids'; each element of ssd_scan's (y, h_final); both sides of
+   ssd_scan also printed against a float64 recurrence), and last-token
+   logits within 3e-2 of the
    largest |logit| or within the model's floor where that is larger (the
    gap that rounding the plain flash's output toward zero makes); greedy
    agreement and the gap with each run routing itself printed;
 7. ``[prefill-long]``: one 4096-token prompt through full-depth bf16
-   ``LM.prefill`` of qwen2.5-3b and of recurrentgemma-2b (``max_len``
-   4096): host ms (median of 3 after a warm-up), exactly one flash launch
-   per attention layer, and flash's device ms per call by
+   ``LM.prefill`` of qwen2.5-3b, mamba2-1.3b and recurrentgemma-2b
+   (``max_len`` 4096): host ms (median of 3 after a warm-up), exact
+   launch counts (one flash per attention layer, one ssd_scan per ssd
+   layer, one rglru_scan per rglru layer), and for each kernel of the
+   prefill its device ms per counted call and its device kernels by
    ``torch.profiler``;
 8. LM serve path: ``repro_torch.launch.serve``'s engine on qwen2.5-3b (36
    layers), granite-moe-3b-a800m (32), mamba2-1.3b (48) and
@@ -153,6 +166,7 @@ from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rglru as rglru_mod  # noqa: E402
+from repro_torch.models import ssd as ssd_mod  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -188,28 +202,37 @@ GMM_RAGGED = ((3, 37, 45, 70), (5, 1, 7, 3), (2, 33, 100, 65))
 SSD_GRID = ((1, 2, 32, 8, 16), (2, 4, 64, 16, 32))
 SSD_RAGGED = ((1, 3, 37, 8, 16), (2, 2, 5, 16, 16), (1, 2, 100, 16, 32))
 SSD_TIMED = ((4, 24), (4, 512), (1, 4096))
+SSD_TOL = 2e-4
+# heads per output block timed at each of SSD_TIMED and (1, 512): the data
+# behind the wrapper's heads_per_block
+SSD_HEADS = (1, 2, 4, 8, 16, 32, 64)
 RG_ARCH = "recurrentgemma_2b"
 # rglru_scan: the kernel test grid (B, T, W) with a in U(0.2, 0.999), ragged
-# T and W; times at (B, T) with recurrentgemma-2b's W = 2560, a and b f32
+# T and W; times at (B, T) with recurrentgemma-2b's W = 2560, a and b f32.
+# A call of one 64-step chunk skips the kernel that pairs the chunks: the
+# checks take T on both sides of that edge.
 RGLRU_TOL = 1e-4
 RGLRU_GRID = ((1, 32, 16), (2, 128, 64), (3, 64, 256))
 RGLRU_RAGGED = ((2, 37, 45), (1, 5, 3), (3, 20, 130))
 RGLRU_TIMED = ((4, 24), (4, 512), (1, 4096))
+RGLRU_CHUNK = 64  # steps per chunk: kTc in csrc/rglru_scan.cu
 # flash at recurrentgemma-2b's local attention (H=10, KV=1, D=256, window 2048)
 RG_FLASH_TIMED = ((4, 24), (1, 4096))
 # the bf16 tensor-core path's ragged head dims and lengths
 FLASH_BF16_D = (24, 80, 256)
 FLASH_BF16_S = (1, 63, 65, 129)
-# device ms per call of each timed shape with the kernels as they were before
-# the bf16 tensor-core redesign of flash and moe_gmm (PERF.md's kernel table;
-# NVIDIA H100 80GB HBM3, 700.00 W), keyed by table and shape: printed in the
-# timing tables' `before` column, beside this run's times, and nowhere else
+# device ms per call of each timed shape with each kernel as it was before its
+# redesign (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700.00 W): flash
+# and moe_gmm on the CUDA cores; ssd_scan as one block per (b, h) walking
+# the chunks in order, rglru_scan as one thread per channel walking all of T.
+# Keyed by table and shape: printed in the timing tables' `before` column,
+# beside this run's times, and nowhere else
 BEFORE_MS = {
     ("flash", (4, 24)): 0.01694, ("flash", (4, 512)): 0.58414, ("flash", (1, 4096)): 7.68650,
     ("rg_flash", (4, 24)): 0.03146, ("rg_flash", (1, 4096)): 12.49169,
     ("moe_gmm", "wi"): 0.27632, ("moe_gmm", "wo"): 0.16695,
-    ("ssd_scan", (4, 24)): 0.06028, ("ssd_scan", (4, 512)): 1.24866, ("ssd_scan", (1, 4096)): 8.35241,
-    ("rglru_scan", (4, 24)): 0.00216, ("rglru_scan", (4, 512)): 0.07085, ("rglru_scan", (1, 4096)): 0.47162,
+    ("ssd_scan", (4, 24)): 0.06077, ("ssd_scan", (4, 512)): 1.26050, ("ssd_scan", (1, 4096)): 8.55763,
+    ("rglru_scan", (4, 24)): 0.00239, ("rglru_scan", (4, 512)): 0.07055, ("rglru_scan", (1, 4096)): 0.47136,
 }
 # [prefill-long]: one prompt of this many tokens through full-depth bf16 prefill
 LONG_PROMPT = 4096
@@ -263,6 +286,27 @@ def graph_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_kernels_us(fn, calls: int = 3) -> dict[str, float]:
+    """Device µs per call of each kernel that ``fn`` launches, by name, from
+    ``torch.profiler`` over ``calls`` calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+_kernel)", e.name)
+            name = m.group(1) if m else e.name[:40]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / calls
+    return out
+
+
 def eager_ms(fn, iters: int = 200) -> float:
     """Time per call of ``fn`` launched from Python, host cost included:
     CUDA events around ``iters`` back-to-back calls after a warm-up."""
@@ -304,19 +348,27 @@ def ptxas_functions(report: str) -> dict[str, dict]:
     return funcs
 
 
-def short_kernel_name(mangled: str) -> str:
+SCAN_TYPES = {"f": "float", "13__nv_bfloat16": "bf16", "6float4": "float4"}
+
+
+def short_kernel_name(mangled: str) -> str | None:
     """``..._flash_attention_bf16_kernelILi128ELi64ELb1EE...`` ->
-    ``flash_attention_bf16_kernel<128, 64, 1>``."""
+    ``flash_attention_bf16_kernel<128, 64, 1>``, ``...22ssd_scan_output_kernelIfEE...``
+    -> ``ssd_scan_output_kernel<float>``; None for another kernel."""
     m = re.search(r"((?:flash_attention|moe_gmm)_bf16_kernel)I(.*?)EE", mangled)
-    if not m:
-        return mangled
-    return f"{m.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', m.group(2) + 'E'))}>"
+    if m:
+        return f"{m.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', m.group(2) + 'E'))}>"
+    m = re.search(r"\d+((?:ssd|rglru)_scan\w*?_kernel)I(f|13__nv_bfloat16|6float4)E", mangled)
+    if m:
+        return f"{m.group(1)}<{SCAN_TYPES[m.group(2)]}>"
+    return None
 
 
 def phase_build(check_spills: bool = True) -> list[dict]:
     """Every kernel's nvcc started at once, one thread each; then the
-    registers and spills of the bf16 tensor-core instantiations, which
-    must spill nothing (``check_spills``: and must exist)."""
+    registers and spills of the bf16 tensor-core instantiations and of the
+    scan kernels, which must spill nothing (``check_spills``: and must
+    exist)."""
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         infos = list(pool.map(_build.build, KERNELS))
     tc = []
@@ -327,16 +379,18 @@ def phase_build(check_spills: bool = True) -> list[dict]:
         for line in info.ptxas.strip().splitlines():
             print(f"    {line}")
         for mangled, props in ptxas_functions(info.ptxas).items():
-            if "bf16_kernel" in mangled:
-                tc.append({"kernel": short_kernel_name(mangled), **props})
+            name = short_kernel_name(mangled)
+            if name is not None:
+                tc.append({"kernel": name, **props})
     print(f"[build] bf16 tensor-core instantiations (template: DP, BC, ALIGNED for flash; MT, ALIGNED for "
-          f"moe_gmm): {len(tc)}")
+          f"moe_gmm) and scan kernels (template: the type of B/C, a/b or the carried vector): {len(tc)}")
     for row in tc:
         print(f"    {row['kernel']:44s} registers {row.get('registers', '?'):>3}, spill stores "
               f"{row.get('spill_stores', '?')} B, spill loads {row.get('spill_loads', '?')} B")
     spilled = [r["kernel"] for r in tc if r.get("spill_stores", 1) != 0]
     if check_spills and (not tc or spilled):
-        raise AssertionError(f"bf16 tensor-core kernels that spill (or no report): {spilled or 'none found'}")
+        raise AssertionError(f"bf16 tensor-core or scan kernels that spill (or no report): "
+                             f"{spilled or 'none found'}")
     return tc
 
 
@@ -709,13 +763,16 @@ def phase_moe_gmm_timing() -> list[dict]:
     return rows
 
 
-def ssd_operands(B, H, T, P, N, bc_dtype, seed):
+def ssd_operands(B, H, T, P, N, bc_dtype, seed, *, decay=0.2):
     """xb (B, H, T, P) and a (B, H, T) float32 as views of (B, T, H, ...)
     storage, as the model passes them; Bm, Cm (B, T, N) in ``bc_dtype``.
-    The kernel test's distributions, B and C scaled by 1/sqrt(N)."""
+    The kernel test's distributions, B and C scaled by 1/sqrt(N), a =
+    -|normal| x ``decay``: at 0.2 a 64-row chunk decays by about e^-10 and
+    the carried state barely reaches the next chunk; at 0.002 by about
+    e^-0.1, and every chunk's output leans on the carry."""
     rng = np.random.default_rng(seed)
     xb = torch.from_numpy(rng.normal(size=(B, T, H, P)).astype(np.float32)).to(DEV).transpose(1, 2)
-    a = torch.from_numpy((-np.abs(rng.normal(size=(B, T, H))) * 0.2).astype(np.float32)).to(DEV).transpose(1, 2)
+    a = torch.from_numpy((-np.abs(rng.normal(size=(B, T, H))) * decay).astype(np.float32)).to(DEV).transpose(1, 2)
     Bm, Cm = (torch.from_numpy((rng.normal(size=(B, T, N)) / np.sqrt(N)).astype(np.float32)).to(DEV, bc_dtype)
               for _ in range(2))
     return xb, a, Bm, Cm
@@ -728,23 +785,31 @@ def phase_ssd_kernel() -> dict:
     H, P, N = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
     shapes = [("grid", *s) for s in SSD_GRID] + [("ragged", *s) for s in SSD_RAGGED]
     shapes += [("mamba2", SERVE_SLOTS, H, T, P, N) for T in (4, 24, 35)] + [("mamba2", 1, H, 200, P, N)]
+    shapes = [(*s, 0.2) for s in shapes]  # (..., decay)
+    # many chunks at full width: a long prefill, the [lm-bf16] prefill, and a
+    # ragged last chunk; then states carried across every chunk
+    shapes += [("mamba2 long", B, H, T, P, N, 0.2) for B, T in ((1, 4096), (SERVE_SLOTS, 512), (1, 4095))]
+    shapes += [("slow decay", 1, H, 4096, P, N, 0.002), ("slow decay", 1, 3, 200, 72, 20, 0.002)]
     worst: dict[str, float] = {}
     cases = 0
-    for i, (label, B, H_, T, P_, N_) in enumerate(shapes):
+    for i, (label, B, H_, T, P_, N_, decay) in enumerate(shapes):
         for bc_dtype in (torch.float32, torch.bfloat16):
-            xb, a, Bm, Cm = ssd_operands(B, H_, T, P_, N_, bc_dtype, seed=i)
+            xb, a, Bm, Cm = ssd_operands(B, H_, T, P_, N_, bc_dtype, seed=i, decay=decay)
             y, h = ssd_scan(xb, a, Bm, Cm)
             torch.cuda.synchronize()
+            if y.stride() != xb.stride():
+                raise AssertionError(f"ssd_scan {label} {(B, H_, T, P_, N_)}: y strides {y.stride()}, "
+                                     f"xb's {xb.stride()}")
             y_want, h_want = ssd_scan_plain(xb, a, Bm, Cm)
             wants = [("y", y, y_want), ("h_final", h, h_want)]
             if T <= 64:
                 wants.append(("y vs oracle", y, ssd_scan_ref(xb, a, Bm, Cm)))
             for what, got, want in wants:
                 diff = (got - want).abs()
-                if not torch.isfinite(got).all() or bool((diff > 2e-4 + 2e-4 * want.abs()).any()):
+                if not torch.isfinite(got).all() or bool((diff > SSD_TOL + SSD_TOL * want.abs()).any()):
                     raise AssertionError(
                         f"ssd_scan {label} {(B, H_, T, P_, N_)} B/C {bc_dtype}: {what} max |kernel - want| "
-                        f"= {float(diff.max()):.3g} beyond atol = rtol = 2e-4"
+                        f"= {float(diff.max()):.3g} beyond atol = rtol = {SSD_TOL}"
                     )
                 worst[f"{label} {what}"] = max(worst.get(f"{label} {what}", 0.0), float(diff.max()))
             cases += 1
@@ -783,12 +848,66 @@ def phase_ssd_timing() -> list[dict]:
         rows.append(row)
         print(f"    {B:>2d} {T:>5d} {row['ms']:>10.5f} {row['eager_ms']:>10.5f} {row['plain_ms']:>10.5f} "
               f"{row['bound_ms']:>10.6f} {'(' + row['bound_by'] + ')':12s} {BEFORE_MS['ssd_scan', (B, T)]:>10.5f}")
+        print_device_kernels(lambda: ssd_scan(xb, a, Bm, Cm))
     return rows
 
 
-def rglru_operands(B, T, W, dtype, seed, *, strided=False):
-    """a in U(0.2, 0.999) and b normal, (B, T, W) on the card in ``dtype``
-    (the kernel test's distributions).  With ``strided`` each is the
+def phase_ssd_heads() -> dict:
+    """Device ms per ``ssd_scan`` call with each count in :data:`SSD_HEADS`
+    of heads sharing one output block's C . B^T, at mamba2-1.3b's timed
+    shapes and (1, 512), B/C bf16; the count the wrapper's
+    ``heads_per_block`` picks on this card is starred.  Skipped for an older
+    package (``--src``) without that rule."""
+    mod = sys.modules["repro_torch.kernels.ssd_scan"]
+    if not hasattr(mod, "heads_per_block"):
+        return {}
+    cfg = get_config(SSD_ARCH)
+    H, P, N = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    print(f"[kernels] ssd_scan ms per call by heads per output block (graph; {sms} SMs; * = heads_per_block's "
+          f"pick; blocks = output blocks)")
+    print(f"    {'B':>2s} {'T':>5s} " + " ".join(f"{f'G={g}':>10s}" for g in SSD_HEADS))
+    picks = {}
+    for B, T in (*SSD_TIMED, (1, 512)):
+        xb, a, Bm, Cm = ssd_operands(B, H, T, P, N, torch.bfloat16, seed=T)
+        chunks = mod._lib().ssd_scan_chunks(T)
+        pick = mod.heads_per_block(B, H, chunks, sms)
+        iters = 200 if T <= 512 else 10
+        ms = {g: graph_ms(lambda g=g: mod._launch(xb, a, Bm, Cm, g), iters) for g in SSD_HEADS}
+        best = min(ms, key=ms.get)
+        picks[B, T] = {"pick": pick, "pick_ms": ms[pick], "best": best, "best_ms": ms[best]}
+        print(f"    {B:>2d} {T:>5d} " + " ".join(f"{ms[g]:>9.5f}{'*' if g == pick else ' '}" for g in SSD_HEADS)
+              + f"   blocks {' '.join(str(B * chunks * -(-H // g)) for g in SSD_HEADS)}; fastest G={best}, "
+              f"pick / fastest {ms[pick] / ms[best]:.3f}")
+    return picks
+
+
+def ssd_scan_f64(xb, a, Bm, Cm):
+    """``h_t = e^{a_t} h_{t-1} + xb_t B_t^T``, ``y_t = h_t C_t`` step by
+    step in float64: the oracle that says which of the kernel and the
+    plain version carries a gap between the two."""
+    x, av, b, c = (t.double() for t in (xb, a, Bm, Cm))
+    Bsz, H, T, P = x.shape
+    h = torch.zeros((Bsz, H, P, b.shape[-1]), dtype=torch.float64, device=x.device)
+    y = torch.empty((Bsz, H, T, P), dtype=torch.float64, device=x.device)
+    for t in range(T):
+        h = torch.exp(av[:, :, t])[..., None, None] * h + x[:, :, t, :, None] * b[:, None, t, None, :]
+        y[:, :, t] = torch.einsum("bhpn,bn->bhp", h, c[:, t])
+    return y, h
+
+
+def print_device_kernels(fn) -> None:
+    """One line under a timing row: the device kernels one call issues."""
+    us = device_kernels_us(fn)
+    print(f"          device kernels of one call (profiler, µs): "
+          + ", ".join(f"{name} {t:.1f}" for name, t in us.items()))
+
+
+def rglru_operands(B, T, W, dtype, seed, *, strided=False, lo=0.2):
+    """a in U(``lo``, 0.999) and b normal, (B, T, W) on the card in
+    ``dtype`` (the kernel test's distributions at ``lo`` = 0.2, where a
+    64-step chunk's product of a is about 1e-17 and the state carried into
+    it vanishes; at 0.99 it is about 0.7).  With ``strided`` each is the
     (B, T, W) view of (T, B, W) storage."""
     rng = np.random.default_rng(seed)
 
@@ -797,7 +916,7 @@ def rglru_operands(B, T, W, dtype, seed, *, strided=False):
             return torch.from_numpy(np.ascontiguousarray(x.transpose(1, 0, 2))).to(DEV, dtype).transpose(0, 1)
         return torch.from_numpy(x).to(DEV, dtype)
 
-    return mk(rng.uniform(0.2, 0.999, (B, T, W)).astype(np.float32)), mk(rng.normal(size=(B, T, W)).astype(np.float32))
+    return mk(rng.uniform(lo, 0.999, (B, T, W)).astype(np.float32)), mk(rng.normal(size=(B, T, W)).astype(np.float32))
 
 
 def phase_rglru_kernel() -> dict:
@@ -807,11 +926,19 @@ def phase_rglru_kernel() -> dict:
     shapes = [("grid", *s, False) for s in RGLRU_GRID] + [("ragged", *s, st) for s in RGLRU_RAGGED
                                                          for st in (False, True)]
     shapes += [("rgemma", SERVE_SLOTS, T, W, False) for T in (4, 24, 35)] + [("rgemma", 1, 300, W, False)]
+    # one chunk (no pairs) and two, then long prefills
+    shapes += [("rgemma chunk edge", SERVE_SLOTS, T, W, st) for T in (RGLRU_CHUNK, RGLRU_CHUNK + 1)
+               for st in (False, True)]
+    shapes += [("rgemma long", 1, T, W, st) for T in (4096, 4097) for st in (False, True)]
+    shapes = [(*s, 0.2) for s in shapes]  # (..., lo)
+    # states carried across chunks, on the split path
+    shapes += [("slow decay", 1, 4096, W, False, 0.99),
+               ("slow decay", SERVE_SLOTS, 2 * RGLRU_CHUNK + 1, W, True, 0.99)]
     worst: dict[str, float] = {}
     cases = 0
-    for i, (label, B, T, W_, strided) in enumerate(shapes):
+    for i, (label, B, T, W_, strided, lo) in enumerate(shapes):
         for dtype in (torch.float32, torch.bfloat16):
-            a, b = rglru_operands(B, T, W_, dtype, seed=i, strided=strided)
+            a, b = rglru_operands(B, T, W_, dtype, seed=i, strided=strided, lo=lo)
             h = rglru_scan(a, b)
             torch.cuda.synchronize()
             if h.dtype != torch.float32 or h.shape != (B, T, W_) or not torch.isfinite(h).all():
@@ -860,6 +987,7 @@ def phase_rglru_timing() -> list[dict]:
         rows.append(row)
         print(f"    {B:>2d} {T:>5d} {row['ms']:>10.5f} {row['eager_ms']:>10.5f} {row['plain_ms']:>10.5f} "
               f"{row['bound_ms']:>10.6f} {'(' + row['bound_by'] + ')':12s} {BEFORE_MS['rglru_scan', (B, T)]:>10.5f}")
+        print_device_kernels(lambda: rglru_scan(a, b))
     return rows
 
 
@@ -1005,34 +1133,61 @@ def phase_lm_parity(arch: str, *, n_layers: int = 2, prompt: int = 16, prepare=N
     return {"max_abs_err": worst, "launches": counts}
 
 
+# the name each model module calls a kernel by, and the kernel's plain version
+MODEL_KERNELS = ((attention_mod, "flash_attention"), (moe_mod, "moe_gmm"), (ssd_mod, "ssd_scan"),
+                 (rglru_mod, "rglru_scan"))
+PLAIN = {"flash_attention": flash_attention_plain, "moe_gmm": moe_gmm_plain, "ssd_scan": ssd_scan_plain,
+         "rglru_scan": rglru_scan_plain}
+KERNEL = {"flash_attention": flash_attention, "moe_gmm": moe_gmm, "ssd_scan": ssd_scan, "rglru_scan": rglru_scan}
+# [lm-bf16]: each kernel call's limit on max |kernel - plain| / max |plain|:
+# the bf16 kernel grid's tolerance for the tensor-core kernels, the kernel
+# grid's for the fp32 scans
+PER_CALL_TOL = {"flash_attention": FLASH_TOL[torch.bfloat16], "moe_gmm": GMM_TOL[torch.bfloat16],
+                "ssd_scan": SSD_TOL, "rglru_scan": RGLRU_TOL}
+
+
 @contextlib.contextmanager
-def kernels_as(flash, gmm):
-    """The model modules' flash and moe_gmm names bound to ``flash`` and
-    ``gmm`` for the duration: this script's comparisons only, the package
-    has no switch."""
-    saved = attention_mod.flash_attention, moe_mod.moe_gmm
-    attention_mod.flash_attention, moe_mod.moe_gmm = flash, gmm
+def kernels_as(kernels: dict):
+    """The model modules' names of the four kernels bound to ``kernels[name]``
+    for the duration: this script's comparisons only, the package has no
+    switch."""
+    saved = [getattr(mod, name) for mod, name in MODEL_KERNELS]
+    for mod, name in MODEL_KERNELS:
+        setattr(mod, name, kernels[name])
     try:
         yield
     finally:
-        attention_mod.flash_attention, moe_mod.moe_gmm = saved
+        for (mod, name), fn in zip(MODEL_KERNELS, saved):
+            setattr(mod, name, fn)
 
 
-def on_inputs(kernel, plain, tol: float, worst: dict, name: str):
+def on_inputs(kernel, plain, tol: float, worst: dict, name: str, oracle=None, against: dict | None = None):
     """``kernel`` that also holds each call's output against ``plain`` on
     the same inputs (the model's own activations, at its shapes): max
-    |kernel - plain| within ``tol`` of max |plain|, the kernel grid's bf16
-    atol taken to the scale of these activations (an attention output near
-    0 carries an error in proportion to |v|, not to itself).  The largest
-    ratio goes to ``worst[name]``.  The plain call launches nothing."""
+    |kernel - plain| within ``tol`` of max |plain|, for each element of a
+    tuple output, the kernel grid's atol taken to the scale of these
+    activations (an attention output near 0 carries an error in proportion
+    to |v|, not to itself).  The largest ratio goes to ``worst[name]``.
+    With ``oracle``, the largest ratios of kernel and plain version each to
+    the oracle go to ``against["kernel"]`` and ``against["plain"]``
+    (reported, not checked).  The plain call launches nothing."""
+    def ratio(got, want):
+        pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
+        return max(float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30))
+                   for g, w in pairs)
+
     def call(*args, **kw):
         got = kernel(*args, **kw)
-        want = plain(*args, **kw).float()
-        ratio = float((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30))
-        worst[name] = max(worst[name], ratio)
-        if ratio > tol:
+        want = plain(*args, **kw)
+        r = ratio(got, want)
+        worst[name] = max(worst.get(name, 0.0), r)
+        if r > tol:
             raise AssertionError(f"{name} on the model's inputs {tuple(args[0].shape)}: max |kernel - plain| "
-                                 f"/ max |plain| = {ratio:.3g} beyond {tol}")
+                                 f"/ max |plain| = {r:.3g} beyond {tol}")
+        if oracle is not None:
+            truth = oracle(*args, **kw)
+            for who, out in (("kernel", got), ("plain", want)):
+                against[who] = max(against.get(who, 0.0), ratio(out, truth))
         return got
     return call
 
@@ -1081,9 +1236,10 @@ def phase_lm_bf16(arch: str, *, n_layers: int = 2, batch: int = 4, prompt: int =
     prompt batch per seed in ``seeds``:
 
     * every kernel call of the prefill through the kernels against its
-      plain version on the same inputs (:func:`on_inputs`);
+      plain version on the same inputs (:func:`on_inputs`), within
+      :data:`PER_CALL_TOL`;
     * the prefill's last-token logits through the kernels against the
-      same module with the plain flash and moe_gmm, the MoE routing of the
+      same module with the four plain versions, the MoE routing of the
       plain run replayed in the kernels' run (a routing decision is
       discrete: one ulp can move a token past an expert's capacity), within
       3e-2 of the largest |logit|, or within the model's floor if that is
@@ -1103,13 +1259,13 @@ def phase_lm_bf16(arch: str, *, n_layers: int = 2, batch: int = 4, prompt: int =
     lm32 = LM(cfg.replace(dtype="float32"), device="cpu", generator=torch.Generator().manual_seed(0))
     lm32.load_state_dict({k: v.float() for k, v in cpu.state_dict().items()})
     lm, lm32 = cpu.to(DEV), lm32.to(DEV)
-    worst = {"flash_attention": 0.0, "moe_gmm": 0.0}
-    flash_checked = on_inputs(flash_attention, flash_attention_plain, FLASH_TOL[torch.bfloat16], worst,
-                              "flash_attention")
-    gmm_checked = on_inputs(moe_gmm, moe_gmm_plain, GMM_TOL[torch.bfloat16], worst, "moe_gmm")
+    worst: dict[str, float] = {}  # the kernels this model calls
+    against: dict[str, float] = {}  # ssd_scan's kernel and plain version against a float64 recurrence
+    checked = {name: on_inputs(KERNEL[name], PLAIN[name], PER_CALL_TOL[name], worst, name) for name in KERNEL}
+    checked["ssd_scan"] = on_inputs(ssd_scan, ssd_scan_plain, SSD_TOL, worst, "ssd_scan", ssd_scan_f64, against)
 
-    def prefill(model, toks, flash, gmm, **route):
-        with torch.inference_mode(), kernels_as(flash, gmm), routing(**route):
+    def prefill(model, toks, kernels, **route):
+        with torch.inference_mode(), kernels_as(kernels), routing(**route):
             out, _ = model.prefill(toks, max_len=prompt)
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
@@ -1120,9 +1276,9 @@ def phase_lm_bf16(arch: str, *, n_layers: int = 2, batch: int = 4, prompt: int =
     for seed in seeds:
         toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (batch, prompt))).to(DEV)
         routes: list = []
-        want = prefill(lm, toks, flash_attention_plain, moe_gmm_plain, record=routes)
+        want = prefill(lm, toks, PLAIN, record=routes)
         reset_counts()
-        got = prefill(lm, toks, flash_checked, gmm_checked, replay=routes)
+        got = prefill(lm, toks, checked, replay=routes)
         counts = read_counts()
         check_counts(f"bf16 LM {arch}", counts, expected_counts(cfg, prefills=1, decode_steps=0))
         top = float(want.abs().max())
@@ -1131,27 +1287,31 @@ def phase_lm_bf16(arch: str, *, n_layers: int = 2, batch: int = 4, prompt: int =
             return float((a - b).abs().max()) / top
 
         gaps.append(gap(got, want))
-        floors.append(gap(prefill(lm, toks, flash_plain_toward_zero, moe_gmm_plain, replay=routes), want))
+        floors.append(gap(prefill(lm, toks, {**PLAIN, "flash_attention": flash_plain_toward_zero}, replay=routes),
+                          want))
         limit = max(3e-2, floors[-1])
         line = (f"[lm-bf16] {cfg.name} full width x {n_layers} layers bf16, prefill ({batch}, {prompt}), seed {seed}: "
-                f"kernels vs plain flash/moe_gmm max |logit gap| / max |logit| = {gaps[-1]:.3e} (limit {limit:.3e}: "
+                f"kernels vs plain versions max |logit gap| / max |logit| = {gaps[-1]:.3e} (limit {limit:.3e}: "
                 f"3e-2 or the floor {floors[-1]:.3e}; max |logit| {top:.3f}), greedy agreement "
                 f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.2f}")
         if cfg.is_moe:
             own: list = []
-            free = prefill(lm, toks, flash_attention, moe_gmm, record=own)
+            free = prefill(lm, toks, KERNEL, record=own)
             moved = [f"{float((a != b).float().mean()):.3f}" for a, b in zip(own, routes)]
             line += (f"; each run routing itself {gap(free, want):.3e}, share of routing slots that moved "
                      f"per layer {moved}")
         if seed == seeds[0]:
-            truth = prefill(lm32, toks, flash_attention_plain, moe_gmm_plain)
+            truth = prefill(lm32, toks, PLAIN)
             line += f"; bf16 vs an fp32 run of the same weights: plain {gap(want, truth):.3e}, kernels {gap(got, truth):.3e}"
         print(line + f"; launches {counts}")
         if gaps[-1] > limit:
             raise AssertionError(f"bf16 LM {arch} seed {seed}: logit gap {gaps[-1]:.3g} of max |logit| beyond {limit:.3g}")
-    print(f"[lm-bf16] {cfg.name}: every kernel call within 2e-2 of its plain version on the model's own inputs, "
-          f"max |kernel - plain| / max |plain| {', '.join(f'{k} {v:.3e}' for k, v in worst.items() if v)}; "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[lm-bf16] {cfg.name}: every kernel call within its limit of its plain version on the model's own "
+          f"inputs, max |kernel - plain| / max |plain| "
+          f"{', '.join(f'{k} {v:.3e} (limit {PER_CALL_TOL[k]:g})' for k, v in worst.items())}"
+          + (f"; ssd_scan against a float64 recurrence on the same inputs, max |x - f64| / max |f64|: kernel "
+             f"{against['kernel']:.3e}, plain {against['plain']:.3e}" if against else "")
+          + f"; {time.perf_counter() - t0:.1f} s")
     del cpu, lm, lm32
     gc.collect()
     torch.cuda.empty_cache()
@@ -1161,8 +1321,9 @@ def phase_lm_bf16(arch: str, *, n_layers: int = 2, batch: int = 4, prompt: int =
 def phase_prefill_long(arch: str) -> dict:
     """One ``LONG_PROMPT``-token prompt through full-depth bf16 ``LM.prefill``
     (``max_len`` = the prompt): host ms between syncs (median of 3 after a
-    warm-up), flash launches per call (one per attention layer), and
-    flash's device ms per call from a ``torch.profiler`` pass."""
+    warm-up), exact launch counts, and for each kernel of the prefill its
+    device ms per counted call (all the device kernels one call issues)
+    from a ``torch.profiler`` pass."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1186,20 +1347,26 @@ def phase_prefill_long(arch: str) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             lm.prefill(toks, max_len=LONG_PROMPT)
             torch.cuda.synchronize()
-    flash_us = [e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA and "flash_attention" in e.name]
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    device = [(e.name, e.time_range.elapsed_us()) for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(us for _, us in device) / 1e3
     med = sorted(ms)[1]
-    flash_ms = sum(flash_us) / 1e3 / max(len(flash_us), 1) if flash_us else float("nan")
+    kernels = {}
+    for name in ("flash_attention", "ssd_scan", "rglru_scan"):
+        if want[name]:
+            us = [t for n, t in device if name in n]
+            kernels[name] = {"launches": want[name], "device_kernels": len(us),
+                             "ms_per_call": sum(us) / 1e3 / want[name] if us else float("nan"),
+                             "ms": sum(us) / 1e3}
     print(f"[prefill-long] {cfg.name} full depth ({cfg.n_layers} layers) bf16, one {LONG_PROMPT}-token prompt, "
           f"max_len {LONG_PROMPT}: prefill ms median {med:.3f} (runs {', '.join(f'{t:.3f}' for t in ms)}); "
-          f"flash launches per call {want['flash_attention']} (one per attention layer); flash device ms per call "
-          f"{flash_ms:.5f} over {len(flash_us)} launches in the profiled call ({sum(flash_us) / 1e3:.3f} ms of "
-          f"{busy_us / 1e3:.3f} ms device busy)")
+          f"device busy {busy_ms:.3f} ms in the profiled call; per kernel (launches counted per call, device "
+          f"kernels in the profiled call, device ms per counted call, device ms in all): "
+          + "; ".join(f"{k} {v['launches']}, {v['device_kernels']}, {v['ms_per_call']:.5f}, {v['ms']:.3f}"
+                      for k, v in kernels.items()))
     del lm
     gc.collect()
     torch.cuda.empty_cache()
-    return {"prefill_ms": med, "flash_ms": flash_ms, "flash_launches": want["flash_attention"]}
+    return {"prefill_ms": med, "busy_ms": busy_ms, "kernels": kernels}
 
 
 class TimedLM:
@@ -1363,6 +1530,7 @@ def main() -> None:
         gmm_rows = phase_moe_gmm_timing()
         ssd = phase_ssd_kernel()
         ssd_rows = phase_ssd_timing()
+        phase_ssd_heads()
         rglru = phase_rglru_kernel()
         rglru_rows = phase_rglru_timing()
         rg_flash_rows = phase_rg_flash_timing()
@@ -1378,11 +1546,11 @@ def main() -> None:
     if "lm-bf16" in only:
         phase_lm_bf16(LM_ARCH)
         phase_lm_bf16(MOE_ARCH)
+        phase_lm_bf16(SSD_ARCH)  # (4, 512): 128 divides it (C-ref-5), eight 64-row kernel chunks
         # one (rglru, rglru, local_attn) period over 4096 tokens: the window of 2048 bites
         phase_lm_bf16(RG_ARCH, n_layers=3, batch=2, prompt=LONG_PROMPT, prepare=draw)
     if "prefill-long" in only:
-        for arch in (LM_ARCH, RG_ARCH):
-            phase_prefill_long(arch)
+        longs = {arch: phase_prefill_long(arch) for arch in (LM_ARCH, SSD_ARCH, RG_ARCH)}
     if "serve" in only:
         served = {arch: phase_serve(arch) for arch in (LM_ARCH, MOE_ARCH, SSD_ARCH, RG_ARCH)}
     if only != set(PHASES):
@@ -1405,9 +1573,9 @@ def main() -> None:
         kernel_entry("moe_gmm", served[MOE_ARCH]["launches"]["moe_gmm"], gmm, gmm_rows[0],
                      max_abs_err_f32=gmm["max_abs_err_f32"], serve_shapes=shapes(gmm_rows)),
         kernel_entry("ssd_scan", served[SSD_ARCH]["launches"]["ssd_scan"], ssd, ssd_rows[0],
-                     prefill_shapes=shapes(ssd_rows)),
+                     prefill_shapes=shapes(ssd_rows), prefill_long=longs[SSD_ARCH]["kernels"]["ssd_scan"]),
         kernel_entry("rglru_scan", served[RG_ARCH]["launches"]["rglru_scan"], rglru, rglru_rows[0],
-                     prefill_shapes=shapes(rglru_rows)),
+                     prefill_shapes=shapes(rglru_rows), prefill_long=longs[RG_ARCH]["kernels"]["rglru_scan"]),
     ]
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -18,12 +18,12 @@ in ``csrc/rglru_scan.cu`` (built for ``sm_90a`` at first use, see
 is no fallback between the two: a CUDA call launches or raises.
 
 The kernel replaces ``src/repro/kernels/rglru_scan.py::_kernel``.  It is
-bound by the bytes it moves (12 per element in float32); this first
-version runs one thread per channel with h in a register and is built to
-be right — the source says what its design does and what it leaves for
-later (a time-split scan to fill the card at small B).  It takes any T
-and W (the Pallas kernel asserts exact tiling) and reads a and b through
-their strides.
+bound by the bytes it moves (12 per element in float32).  It splits T into
+chunks, so that the card fills at small B: each chunk's (product of a, h
+from 0) pair, then each chunk folds the pairs before it and rescans — two
+device kernels per counted call, one when T fits one chunk; the source
+says how long a chunk is and why.  It takes any T and W (the Pallas kernel
+asserts exact tiling) and reads a and b through their strides.
 """
 
 from __future__ import annotations
@@ -60,18 +60,20 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = _build.load("rglru_scan").rglru_scan_launch
+def _lib():
+    lib = _build.load("rglru_scan")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, i, i, i, i, *([ll] * 6), p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.rglru_scan_launch.argtypes = [p, p, p, p, i, i, i, i, *([ll] * 6), p]
+    lib.rglru_scan_launch.restype = ctypes.c_int
+    lib.rglru_scan_scratch_floats.argtypes = [i, i, i]
+    lib.rglru_scan_scratch_floats.restype = ll
+    return lib
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t h_{t-1} + b_t`` with ``h_0 = 0``: (B, T, W) -> (B, T, W) float32.
 
-    CUDA tensors launch the Hopper kernel (counted in
+    CUDA tensors launch the Hopper kernels (one or two, counted once in
     ``rglru_scan.launches``); CPU tensors take :func:`rglru_scan_plain`.
     """
     if a.device.type == "cpu":
@@ -87,9 +89,13 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     h = torch.empty((B, T, W), dtype=torch.float32, device=a.device)
     if h.numel() == 0:
         return h
+    lib = _lib()
+    scratch = lib.rglru_scan_scratch_floats(B, T, W)
+    pairs = torch.empty(scratch, dtype=torch.float32, device=a.device) if scratch else None
     with torch.cuda.device(a.device):
-        err = _launcher()(
-            a.data_ptr(), b.data_ptr(), h.data_ptr(), int(a.dtype == torch.bfloat16), B, T, W,
+        err = lib.rglru_scan_launch(
+            a.data_ptr(), b.data_ptr(), h.data_ptr(), None if pairs is None else pairs.data_ptr(),
+            int(a.dtype == torch.bfloat16), B, T, W,
             *a.stride(), *b.stride(),
             torch.cuda.current_stream(a.device).cuda_stream,
         )

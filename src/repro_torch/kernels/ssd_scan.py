@@ -19,15 +19,17 @@ in ``csrc/ssd_scan.cu`` (built for ``sm_90a`` at first use, see
 (``repro.models.ssd.ssd_chunked_ref``) in plain torch.  There is no
 fallback between the two: a CUDA call launches or raises.
 
-The kernel replaces ``src/repro/kernels/ssd_scan.py::_kernel``.  At the
-serving prefill it is bound about equally by the bytes of the final state
-and by its fp32 flops; this first version runs the chunk products as fp32
-FMA on the CUDA cores and is built to be right — the source says what its
-design does and what it leaves for later.  It takes any T (the Pallas
-kernel asserts exact tiling; its chunk length is its own, 32 rows) and
-reads every operand through its strides, so the model passes its
-``(B, T, H, P)`` activations as ``(B, H, T, P)`` views without a copy.  y
-takes xb's memory layout.
+The kernel replaces ``src/repro/kernels/ssd_scan.py::_kernel``.  It is
+bound by its fp32 flops at long prompts.  One counted call issues two or
+three kernels, each parallel over time chunks: the chunks' own states, a
+carry of the state across chunks (skipped when T fits one chunk), and the
+outputs, with the chunk products register-tiled in fp32 on the CUDA cores
+— the source says how long a chunk is, what bounds each kernel and why;
+the outputs' blocks share C . B^T among :func:`heads_per_block` heads.
+It takes any T (the Pallas kernel asserts exact tiling) and reads every
+operand through its strides, so the model passes its ``(B, T, H, P)``
+activations as ``(B, H, T, P)`` views without a copy.  y takes xb's
+memory layout.
 """
 
 from __future__ import annotations
@@ -39,10 +41,28 @@ import torch
 
 from . import _build
 
-__all__ = ["ssd_scan", "ssd_scan_plain"]
+__all__ = ["heads_per_block", "ssd_scan", "ssd_scan_plain"]
 
 _SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 _GRID_Y_MAX = 65535
+
+
+def heads_per_block(B: int, H: int, chunks: int, sms: int) -> int:
+    """Heads that share one output block's C . B^T (which has no head index)
+    in a call of batch B, H heads and ``chunks`` time chunks, on a card of
+    ``sms`` multiprocessors: the fewest, a power of two, whose
+    ``B * chunks * ceil(H / G)`` blocks fit one wave — two blocks per
+    multiprocessor (the output kernel's occupancy) when there are several
+    chunks, one for a single chunk, where no carried state is read out and
+    C . B^T is about four times a head's own work, so that sharing it wins
+    over occupancy.  When no count fits, the most heads up to H.  On the
+    H100 (132 SMs) this picks the fastest count of ``chip_smoke.py``'s
+    sweep at mamba2-1.3b's (4, 24), (1, 512), (4, 512) and (1, 4096)."""
+    wave = sms * (2 if chunks > 1 else 1)
+    g = 1
+    while 2 * g <= H and B * chunks * -(-H // g) > wave:
+        g *= 2
+    return g
 
 
 def _check_args(xb, a, Bm, Cm) -> None:
@@ -122,11 +142,20 @@ def ssd_scan_plain(
 def _lib():
     lib = _build.load("ssd_scan")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, *([ll] * 17), p]
+    lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, *([ll] * 17), p]
     lib.ssd_scan_launch.restype = ctypes.c_int
     lib.ssd_scan_smem_bytes.argtypes = [i, i]
     lib.ssd_scan_smem_bytes.restype = ll
+    lib.ssd_scan_chunks.argtypes = [i]
+    lib.ssd_scan_chunks.restype = i
+    lib.ssd_scan_scratch_floats.argtypes = [i, i, i, i, i]
+    lib.ssd_scan_scratch_floats.restype = ll
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ssd_scan(
@@ -137,7 +166,7 @@ def ssd_scan(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(y (B, H, T, P), h_final (B, H, P, N))``, both float32.
 
-    CUDA tensors launch the Hopper kernel (counted in
+    CUDA tensors launch the Hopper kernels (two or three, counted once in
     ``ssd_scan.launches``); CPU tensors take :func:`ssd_scan_plain`.
     """
     if xb.device.type == "cpu":
@@ -152,22 +181,33 @@ def ssd_scan(
     if Bm.dtype not in (torch.float32, torch.bfloat16) or Cm.dtype != Bm.dtype:
         raise TypeError(f"Bm and Cm must both be float32 or both bfloat16, got {Bm.dtype}, {Cm.dtype}")
     B, H, T, P = xb.shape
+    if B > _GRID_Y_MAX or H > _GRID_Y_MAX:
+        raise ValueError(f"B={B} and H={H} must be <= {_GRID_Y_MAX} (grid limit)")
+    heads = heads_per_block(B, H, _lib().ssd_scan_chunks(T), _sms(xb.device))
+    return _launch(xb, a, Bm, Cm, heads)
+
+
+def _launch(xb, a, Bm, Cm, heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan` on checked CUDA operands, with ``heads`` heads per
+    output block (the timing script also calls it with other counts)."""
+    B, H, T, P = xb.shape
     N = Bm.shape[-1]
     y = torch.empty_like(xb)  # xb's layout: a (B, T, H, P) view stays one
     h_final = torch.empty((B, H, P, N), dtype=torch.float32, device=xb.device)
-    if B == 0 or H == 0 or P == 0 or N == 0:
+    if B == 0 or H == 0 or T == 0 or P == 0 or N == 0:
         h_final.zero_()
         return y, h_final
-    if B > _GRID_Y_MAX:
-        raise ValueError(f"B={B} must be <= {_GRID_Y_MAX} (grid limit)")
     lib = _lib()
     smem = lib.ssd_scan_smem_bytes(P, N)
     if smem > _SMEM_MAX:
         raise ValueError(f"P={P}, N={N} need {smem} bytes of shared memory per block, over {_SMEM_MAX}")
+    floats = lib.ssd_scan_scratch_floats(B, H, T, P, N)
+    scratch = torch.empty(floats, dtype=torch.float32, device=xb.device) if floats else None
     with torch.cuda.device(xb.device):
         err = lib.ssd_scan_launch(
             xb.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), h_final.data_ptr(),
-            int(Bm.dtype == torch.bfloat16), B, H, T, P, N,
+            None if scratch is None else scratch.data_ptr(),
+            int(Bm.dtype == torch.bfloat16), B, H, T, P, N, heads,
             *xb.stride(), *a.stride(), *Bm.stride(), *Cm.stride(), *y.stride(),
             torch.cuda.current_stream(xb.device).cuda_stream,
         )

@@ -1,8 +1,10 @@
 """The port on the CUDA card: the Hopper kernels against their plain
 versions (the bf16 tensor-core paths also at ragged head dims and
 lengths, on misaligned rows and on rows with no valid key), one net through the CNN main path bit-exact, a 2-layer LM
-whose prefill goes through the flash kernel, 2-layer MoE and mamba2
-LMs through ``moe_gmm`` and ``ssd_scan``, and a 3-layer recurrentgemma
+whose prefill goes through the flash kernel, the two scans over many
+time chunks at full width (``rglru_scan`` on both sides of its short-T
+threshold, both with decays slow enough that the carried state shows),
+2-layer MoE and mamba2 LMs through ``moe_gmm`` and ``ssd_scan``, and a 3-layer recurrentgemma
 LM through ``rglru_scan`` and the windowed flash kernel.  Marked ``cuda``; without a
 card each test skips (decided inside the fixture, never at import)."""
 
@@ -243,19 +245,28 @@ def test_moe_gmm_bf16_decode_slot_and_layouts(cuda, E, C, D, F, layout):
     torch.testing.assert_close(got.float(), moe_gmm_plain(x, w).float(), atol=2e-2, rtol=2e-2)
 
 
+# the kernel test grid, ragged shapes, rows the kernels cannot read as
+# vectors (P = 6, N = 10), and mamba2-1.3b's: the serving prefill (one chunk),
+# then many 64-row chunks at full width with a ragged last one
 SSD_SHAPES = [(1, 2, 32, 8, 16), (2, 4, 64, 16, 32), (1, 3, 37, 8, 16), (2, 2, 5, 16, 16), (4, 64, 24, 64, 128),
-              (1, 64, 200, 64, 128)]
+              (1, 64, 200, 64, 128), (2, 3, 150, 6, 10), (1, 64, 4096, 64, 128), (4, 64, 512, 64, 128),
+              (1, 64, 4095, 64, 128)]
+
+
+def _ssd_operands(cuda, B, H, T, P, N, bc_dtype, seed, decay=0.2):
+    rng = np.random.default_rng(seed)
+    # (B, T, H, P) storage handed over as (B, H, T, P) views, as the model does
+    xb = torch.from_numpy(rng.normal(size=(B, T, H, P)).astype(np.float32)).to(cuda).transpose(1, 2)
+    a = torch.from_numpy((-np.abs(rng.normal(size=(B, T, H))) * decay).astype(np.float32)).to(cuda).transpose(1, 2)
+    Bm, Cm = (torch.from_numpy((rng.normal(size=(B, T, N)) / np.sqrt(N)).astype(np.float32)).to(cuda, bc_dtype)
+              for _ in range(2))
+    return xb, a, Bm, Cm
 
 
 @pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,T,P,N", SSD_SHAPES)
 def test_ssd_scan_kernel_matches_plain_version(cuda, B, H, T, P, N, bc_dtype):
-    rng = np.random.default_rng(T * P + N)
-    # (B, T, H, P) storage handed over as (B, H, T, P) views, as the model does
-    xb = torch.from_numpy(rng.normal(size=(B, T, H, P)).astype(np.float32)).to(cuda).transpose(1, 2)
-    a = torch.from_numpy((-np.abs(rng.normal(size=(B, T, H))) * 0.2).astype(np.float32)).to(cuda).transpose(1, 2)
-    Bm, Cm = (torch.from_numpy((rng.normal(size=(B, T, N)) / np.sqrt(N)).astype(np.float32)).to(cuda, bc_dtype)
-              for _ in range(2))
+    xb, a, Bm, Cm = _ssd_operands(cuda, B, H, T, P, N, bc_dtype, seed=T * P + N)
     before = ssd_scan.launches
     y, h = ssd_scan(xb, a, Bm, Cm)
     torch.cuda.synchronize()
@@ -266,6 +277,26 @@ def test_ssd_scan_kernel_matches_plain_version(cuda, B, H, T, P, N, bc_dtype):
     torch.testing.assert_close(h, h_want, atol=2e-4, rtol=2e-4)
     if T <= 64:
         torch.testing.assert_close(y, ssd_scan_ref(xb, a, Bm, Cm), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("layout", ["strided B/C", "misaligned xb", "slow decay"])
+def test_ssd_scan_kernel_many_chunks_layouts_and_carry(cuda, layout):
+    """Over eight chunks: B and C read at stride 2, xb one element off 16
+    bytes (both by element loads), and decays of about e^-0.1 a chunk, where
+    every chunk's output leans on the carried state."""
+    B, H, T, P, N = 2, 4, 512, 16, 32
+    xb, a, Bm, Cm = _ssd_operands(cuda, B, H, T, P, N, torch.bfloat16, seed=5,
+                                  decay=0.002 if layout == "slow decay" else 0.2)
+    if layout == "strided B/C":
+        Bm, Cm = (torch.stack([m, torch.zeros_like(m)], dim=-1).flatten(-2)[..., ::2] for m in (Bm, Cm))
+        assert Bm.stride(-1) == 2
+    if layout == "misaligned xb":
+        buf = torch.empty(xb.numel() + 1, device=cuda)
+        xb = buf[1:].view(B, H, T, P).copy_(xb)
+    y, h = ssd_scan(xb, a, Bm, Cm)
+    y_want, h_want = ssd_scan_plain(xb, a, Bm, Cm)
+    torch.testing.assert_close(y, y_want, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(h, h_want, atol=2e-4, rtol=2e-4)
 
 
 @pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "mamba2_1_3b"])
@@ -295,7 +326,11 @@ def test_two_layer_moe_and_ssd_lm_on_card(cuda, arch):
     )
 
 
-RGLRU_SHAPES = [(1, 32, 16), (2, 128, 64), (3, 64, 256), (2, 37, 45), (1, 5, 3), (4, 24, 2560), (1, 300, 2560)]
+# the kernel test grid, ragged shapes, and recurrentgemma-2b's W = 2560: the
+# serving prefill, both sides of the one-chunk edge (64 steps: no chunk
+# pairs, one kernel; 65: two chunks, two kernels), and long prefills
+RGLRU_SHAPES = [(1, 32, 16), (2, 128, 64), (3, 64, 256), (2, 37, 45), (1, 5, 3), (4, 24, 2560), (1, 300, 2560),
+                (4, 64, 2560), (4, 65, 2560), (1, 4096, 2560), (1, 4097, 2560)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -316,6 +351,19 @@ def test_rglru_scan_kernel_matches_plain_version(cuda, B, T, W, dtype):
     torch.testing.assert_close(h, rglru_scan_ref(a, b), atol=1e-4, rtol=1e-4)
     at, bt = (x.transpose(0, 1).contiguous().transpose(0, 1) for x in (a, b))
     torch.testing.assert_close(rglru_scan(at, bt), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [129, 4096])
+def test_rglru_scan_split_path_carries_slow_decays(cuda, T, dtype):
+    """Decays in U(0.99, 0.999): a 64-step chunk keeps about 0.6 of the
+    state entering it, so every chunk's output leans on the folded carry."""
+    rng = np.random.default_rng(T)
+    a = torch.from_numpy(rng.uniform(0.99, 0.999, (2, T, 2560)).astype(np.float32)).to(cuda, dtype)
+    b = torch.from_numpy(rng.normal(size=(2, T, 2560)).astype(np.float32)).to(cuda, dtype)
+    h = rglru_scan(a, b)
+    torch.testing.assert_close(h, rglru_scan_plain(a, b), atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, rglru_scan_ref(a, b), atol=1e-4, rtol=1e-4)
 
 
 def test_rglru_scan_kernel_rejects_mixed_dtypes_and_devices(cuda):
