@@ -8,7 +8,8 @@ Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
 failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build: every CUDA kernel of the main paths compiled by ``nvcc`` from
+2. build: every CUDA kernel of the main paths, and an empty kernel (the
+   launch floor), compiled by ``nvcc`` from
    ``src/repro_torch/kernels/csrc``, one compiler per source, all started
    together (build seconds, ``-Xptxas -v``), and no spill store in any
    bf16 tensor-core instantiation or scan kernel (registers and spills
@@ -31,7 +32,9 @@ failure:
    within 1e-4 of its plain version and of the sequential oracle on the
    kernel test grid, ragged T and W, strided and bf16 operands and
    recurrentgemma-2b's shapes (T on each side of one 64-step chunk, and
-   (1, 4096), (1, 4097)); then times of each at its path's shapes (flash
+   (1, 4096), (1, 4097)); then times of each at its path's shapes
+   (``matmul_requant`` beside the launch floor: an empty kernel at its
+   launch shape, and at 1 block x 32 threads, in a CUDA graph; flash
    also at recurrentgemma-2b's local-attention shape) beside the plain
    version, one PyTorch library call where there is one, the bound, and,
    printed only, the time the same kernel took before its redesign
@@ -43,15 +46,21 @@ failure:
    ``repro_torch.core.dispatch`` -> ``repro_torch.backend.lower`` (default
    device) -> 4 requests through ``CompiledModel.run``, each output
    bit-exact with the port's CPU interpreter, and the GEMM launch count
-   equal to (GEMM segments) x 4 requests;
+   equal to (GEMM segments) x 4 requests; then the same requests through
+   the whole-graph AOT executor (``compile_aot``, one CUDA graph) in both
+   memory modes, ``xla`` and ``arena``: bit-exact with
+   ``CompiledModel.run`` and the interpreter, a rerun of the first request
+   exact (the arena reused), the same GEMM launch count under replay; and
+   ms per request eager / AOT xla / AOT arena (host clock to
+   ``torch.cuda.synchronize()``, median of 5 after a warm-up);
 5. LM parity: qwen2.5-3b, granite-moe-3b-a800m and mamba2-1.3b at full
    width, 2 layers, float32, a 16-token prefill, and recurrentgemma-2b at
    full width, 3 layers (rglru, rglru, local_attn), float32, a 2048-token
    prefill that fills its local-attention ring, with RG-LRU decays drawn
    in about 0.4-0.999 so the recurrence carries; each with 4 greedy decode
-   steps (recurrentgemma's wrap the ring) on the card (the kernels) against
-   the same module on the CPU (plain versions), logits within 1e-3 and
-   identical tokens;
+   steps (recurrentgemma's wrap the ring) on the card (the kernels, decode
+   by the serving engine's captured CUDA graph) against the same module on
+   the CPU (plain versions), logits within 1e-3 and identical tokens;
 6. bf16 LM check of the kernels: qwen2.5-3b, granite-moe-3b-a800m and
    mamba2-1.3b at full width, 2 layers, a (4, 512) prefill, and
    recurrentgemma-2b, 3 layers, a (2, 4096) prefill (the window of 2048
@@ -63,8 +72,11 @@ failure:
    largest |plain| of its plain version (flash and moe_gmm 2e-2, the bf16
    kernel grid's; ssd_scan 2e-4 and rglru_scan 1e-4, their kernel
    grids'; each element of ssd_scan's (y, h_final); both sides of
-   ssd_scan also printed against a float64 recurrence), and last-token
-   logits within 3e-2 of the
+   ssd_scan also printed against a float64 recurrence); each attention
+   layer's and each MoE layer's output before its residual add, through
+   the kernels against the plain versions on the plain run's own
+   activations, within 2e-2 of max |plain|; and last-token logits within
+   3e-2 of the
    largest |logit| or within the model's floor where that is larger (the
    gap that rounding the plain flash's output toward zero makes); greedy
    agreement and the gap with each run routing itself printed;
@@ -78,13 +90,18 @@ failure:
 8. LM serve path: ``repro_torch.launch.serve``'s engine on qwen2.5-3b (36
    layers), granite-moe-3b-a800m (32), mamba2-1.3b (48) and
    recurrentgemma-2b (26), each at full width and depth (bf16, weights
-   from a generator seeded 0), 6 requests, 12 new tokens each, greedy;
-   every request served, all logits finite, and exact launch counts:
-   flash = attention layers (``attn`` and ``local_attn``) x prefill calls,
+   from a generator seeded 0), 6 requests, 12 new tokens each, greedy,
+   4 ``run()`` calls decoding by CUDA-graph replay (the engine's default
+   on the card) and 4 with ``eager=True`` on the same model: every
+   request served, all logits finite, identical tokens, truncation,
+   decode steps, refills and launch counts in all 8 runs, and exact
+   launch counts in each (counted from 0 just before each run): flash =
+   attention layers (``attn`` and ``local_attn``) x prefill calls,
    moe_gmm = 3 x MoE layers x (prefill calls + decode steps), ssd_scan =
    ssd layers x prefill calls, rglru_scan = rglru layers x prefill calls,
-   and no launch of a kernel off the path; then a profiler breakdown of a
-   decode step;
+   and no launch of a kernel off the path; capture ms per graph; decode ms
+   per step and tok/s of each mode (median over runs 2-4); then a
+   profiler breakdown of a decode step, eager and by replay;
 9. one JSON line of per-kernel numbers, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -105,6 +122,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import ctypes
 import gc
 import json
 import os
@@ -144,8 +162,9 @@ import numpy as np  # noqa: E402
 
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import _graphs  # noqa: E402
 from repro_torch._device import resolve_device  # noqa: E402
-from repro_torch.backend import lower  # noqa: E402
+from repro_torch.backend import compile_aot, lower  # noqa: E402
 from repro_torch.cnn import (  # noqa: E402
     execute_graph,
     init_graph_params,
@@ -167,14 +186,17 @@ from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rglru as rglru_mod  # noqa: E402
 from repro_torch.models import ssd as ssd_mod  # noqa: E402
+from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
+from repro_torch.serving import ServeEngine  # noqa: E402
 
 DEV = torch.device("cuda")
 NETS = ("MobileNet", "ResNet", "DSCNN", "DAE")
 TARGETS = ("gap9", "diana")
 REQUESTS = 4
 KERNELS = ("matmul_requant", "flash_attention", "moe_gmm", "ssd_scan", "rglru_scan")
-COUNTED = (matmul_requant, flash_attention, moe_gmm, ssd_scan, rglru_scan)  # wrappers with a launch count
+# every source built: the five kernels and an empty kernel, the card's launch floor
+SOURCES = KERNELS + ("launch_floor",)
 # H100 SXM data sheet: HBM3 bytes/s, dense int8 and bf16 tensor-core ops/s,
 # fp32 ops/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -322,6 +344,21 @@ def eager_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
+def launch_floor(blocks: int, threads: int):
+    """A call that launches ``csrc/launch_floor.cu``'s empty kernel at one
+    launch shape on the current stream: timed in a CUDA graph, the least
+    time any kernel of that shape takes on this card."""
+    fn = _build.load("launch_floor").launch_floor_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        err = fn(blocks, threads, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch_floor kernel launch failed: CUDA error {err}")
+    return launch
+
+
 def library_gemm_requant(af, wf, mult, bias, shift):
     """PyTorch's own calls for the same function (fp32 matmul on the
     integer-valued operands, then the epilogue): the yardstick only."""
@@ -369,8 +406,8 @@ def phase_build(check_spills: bool = True) -> list[dict]:
     registers and spills of the bf16 tensor-core instantiations and of the
     scan kernels, which must spill nothing (``check_spills``: and must
     exist)."""
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        infos = list(pool.map(_build.build, KERNELS))
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        infos = list(pool.map(_build.build, SOURCES))
     tc = []
     for info in infos:
         how = f"built in {info.seconds:.2f} s" if info.seconds else "reused an earlier build"
@@ -419,8 +456,9 @@ def phase_gemm_kernel() -> dict:
           f"({len(shapes)} shapes x 2 roundings x relu on/off x 4 shifts)")
 
     print("[kernels] main-path shapes (M=1), ms per call; graph = device time in a CUDA graph, "
-          "eager = launched from Python")
-    print(f"    {'K':>4s} {'N':>4s} {'kernel':>9s} {'kern eager':>10s} {'plain':>9s} "
+          "eager = launched from Python; floor = an empty kernel at the same launch shape "
+          "(ceil(N/8) blocks of 256 threads) in a CUDA graph")
+    print(f"    {'K':>4s} {'N':>4s} {'kernel':>9s} {'floor':>9s} {'kern eager':>10s} {'plain':>9s} "
           f"{'library':>9s} {'bound':>9s}")
     rows = []
     for k, n in MAIN_KN:
@@ -430,19 +468,50 @@ def phase_gemm_kernel() -> dict:
         row = {
             "shape": [1, k, n],
             "ms": graph_ms(lambda: matmul_requant(a, w, mult, bias, **kw)),
+            "launch_floor_ms": graph_ms(launch_floor(-(-n // 8), 256)),
             "eager_ms": eager_ms(lambda: matmul_requant(a, w, mult, bias, **kw)),
             "plain_ms": graph_ms(lambda: matmul_requant_plain(a, w, mult, bias, **kw)),
             "library_ms": graph_ms(lambda: library_gemm_requant(af, wf, mult, bias, 5)),
         }
         row["bound_ms"], row["bound_by"] = bound(1 * k + k * n + 8 * n + 1 * n, 2 * 1 * n * k, INT8_OPS_S)
         rows.append(row)
-        print(f"    {k:>4d} {n:>4d} {row['ms']:>9.5f} {row['eager_ms']:>10.5f} "
+        print(f"    {k:>4d} {n:>4d} {row['ms']:>9.5f} {row['launch_floor_ms']:>9.5f} {row['eager_ms']:>10.5f} "
               f"{row['plain_ms']:>9.5f} {row['library_ms']:>9.5f} {row['bound_ms']:>9.6f}")
-    return {"max_abs_err": worst, "rows": rows}
+    one = graph_ms(launch_floor(1, 32))
+    print(f"[kernels] launch floor: an empty sm_90a kernel of 1 block x 32 threads in a CUDA graph, "
+          f"{one:.5f} ms per launch")
+    return {"max_abs_err": worst, "rows": rows, "launch_floor_ms": one}
+
+
+def check_outputs(where: str, outs: list[dict], refs: list[dict]) -> None:
+    """Every output on the card, finite, and bit-exact with the CPU
+    interpreter's."""
+    for i, (out, ref) in enumerate(zip(outs, refs)):
+        for name, want in ref.items():
+            got = out[name]
+            if got.device.type != "cuda" or not torch.isfinite(got).all():
+                raise AssertionError(f"{where} request {i}: output not finite on the card")
+            if tuple(got.shape) != tuple(want.shape) or not torch.equal(got.cpu(), want):
+                raise AssertionError(f"{where} request {i}: {name} differs from the CPU interpreter")
+
+
+def host_ms(fn, runs: int = 5) -> tuple[float, list[float]]:
+    """Median host ms of ``fn()`` ended by ``torch.cuda.synchronize()``,
+    over ``runs`` calls after one warm-up call; and the runs."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms)), ms
 
 
 def phase_cnn_path() -> dict:
-    """4 nets x 2 targets through dispatch -> lower -> run on the card."""
+    """4 nets x 2 targets through dispatch -> lower -> run on the card, then
+    through the whole-graph AOT executor in both memory modes."""
     nets = mlperf_tiny_networks()
     cells = []
     for net in NETS:
@@ -479,27 +548,60 @@ def phase_cnn_path() -> dict:
             counts = read_counts()
             launches = counts["matmul_requant"]
             check_counts(f"{net}x{tgt}", counts, {**dict.fromkeys(counts, 0), "matmul_requant": launches})
-            for i, (out, ref) in enumerate(zip(outs, refs)):
-                for name, want in ref.items():
-                    got = out[name]
-                    if got.device.type != "cuda" or not torch.isfinite(got).all():
-                        raise AssertionError(f"{net}x{tgt} request {i}: output not finite on the card")
-                    if tuple(got.shape) != tuple(want.shape) or not torch.equal(got.cpu(), want):
-                        print(cm.verify(params, requests[i], per_segment=True).summary())
-                        raise AssertionError(f"{net}x{tgt} request {i}: {name} differs from the CPU interpreter")
+            try:
+                check_outputs(f"{net}x{tgt}", outs, refs)
+            except AssertionError:
+                print(cm.verify(params, requests[0], per_segment=True).summary())
+                raise
             if launches != gemm_segments * REQUESTS:
                 raise AssertionError(
                     f"{net}x{tgt}: {launches} GEMM kernel launches, expected "
                     f"{gemm_segments} segments x {REQUESTS} requests"
                 )
-            cells.append({"net": net, "target": tgt, "launches": launches})
+            cell = {"net": net, "target": tgt, "launches": launches}
+            # the AOT path in each memory mode: warm-up (capture, uncounted),
+            # then the requests, counts from 0 just before, read just after
+            aot_line = []
+            for memory in ("xla", "arena"):
+                am = compile_aot(cm, memory=memory)
+                entry = am.warmup(params, requests[0])
+                reset_counts()
+                aot_outs = [am.run(params, x) for x in requests]
+                torch.cuda.synchronize()
+                counts = read_counts()
+                check_counts(f"{net}x{tgt} AOT {memory}", counts,
+                             {**dict.fromkeys(counts, 0), "matmul_requant": gemm_segments * REQUESTS})
+                check_outputs(f"{net}x{tgt} AOT {memory}", aot_outs, refs)
+                for i, (a, e) in enumerate(zip(aot_outs, outs)):
+                    if any(not torch.equal(a[k], e[k]) for k in e):
+                        raise AssertionError(f"{net}x{tgt} AOT {memory} request {i}: differs from CompiledModel.run")
+                # the arena (and the static inputs) reused: the first request again
+                again = am.run(params, requests[0])
+                check_outputs(f"{net}x{tgt} AOT {memory} rerun", [again], refs[:1])
+                cell[f"launches_aot_{memory}"] = counts["matmul_requant"]
+                cell[f"aot_{memory}_capture_ms"] = entry.compile_us / 1e3
+                cell[f"aot_{memory}_ms"], runs = host_ms(lambda: am.run(params, requests[0]))
+                aot_line.append(f"{memory} capture {entry.compile_us / 1e3:.1f} ms"
+                                + (f", arena {entry.arena_elems} floats" if memory == "arena" else ""))
+            cell["eager_ms"], eager_runs = host_ms(lambda: cm.run(dev_params, requests[0]))
+            cells.append(cell)
             print(f"[path] {net:9s} x {tgt:5s}: routes {cm.routes()}, compile {compile_s:.2f} s, "
                   f"bit-exact x{REQUESTS}, GEMM launches {launches}, conv bands/request {bands}, "
                   f"ms/request {' '.join(f'{t:.3f}' for t in req_ms)}")
+            print(f"[cnn] {net:9s} x {tgt:5s}: AOT bit-exact with CompiledModel.run and the CPU interpreter in both "
+                  f"memory modes x{REQUESTS} and a rerun, GEMM launches {cell['launches_aot_xla']} (xla), "
+                  f"{cell['launches_aot_arena']} (arena); {'; '.join(aot_line)}; ms per request (median of 5 "
+                  f"after a warm-up, host clock to synchronize): eager {cell['eager_ms']:.3f}, AOT xla "
+                  f"{cell['aot_xla_ms']:.3f}, AOT arena {cell['aot_arena_ms']:.3f}; eager runs "
+                  f"{' '.join(f'{t:.3f}' for t in eager_runs)}")
             if net == "DSCNN" and tgt == "gap9":
                 cm.run(dev_params, requests[0], timed=True)
                 print(cm.report())
-    return {"cells": cells, "launches": sum(c["launches"] for c in cells)}
+    print("[cnn] ms per request, eager / AOT xla / AOT arena: "
+          + "; ".join(f"{c['net']}x{c['target']} {c['eager_ms']:.3f} / {c['aot_xla_ms']:.3f} / {c['aot_arena_ms']:.3f}"
+                      for c in cells))
+    return {"cells": cells, "launches": sum(c["launches"] for c in cells),
+            "launches_aot": sum(c["launches_aot_xla"] + c["launches_aot_arena"] for c in cells)}
 
 
 def off_by_one(x: torch.Tensor) -> torch.Tensor:
@@ -992,12 +1094,12 @@ def phase_rglru_timing() -> list[dict]:
 
 
 def reset_counts() -> None:
-    for fn in COUNTED:
+    for fn in _graphs.COUNTED:
         fn.launches = 0
 
 
 def read_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in COUNTED}
+    return _graphs.launch_counts()
 
 
 def layer_kinds(cfg) -> dict[str, int]:
@@ -1084,7 +1186,8 @@ def check_rings(arch: str, cache: dict, cfg, max_len: int, last: int) -> None:
 
 def phase_lm_parity(arch: str, *, n_layers: int = 2, prompt: int = 16, prepare=None) -> dict:
     """``arch`` at full width, ``n_layers`` layers, fp32: the module on the
-    card (the kernels) against a copy on the CPU (plain versions), a
+    card (the kernels; decode by the serving engine's captured graph)
+    against a copy on the CPU (plain versions, decode op by op), a
     ``prompt``-token prefill and 4 greedy decode steps.  ``prepare(lm)``
     edits the CPU module's weights before the copy."""
     cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32")
@@ -1098,9 +1201,11 @@ def phase_lm_parity(arch: str, *, n_layers: int = 2, prompt: int = 16, prepare=N
     worst, tokens = 0.0, []
     with torch.inference_mode():
         decays = check_decays(cpu, toks) if "rglru" in cfg.block_types else ""
+    eng = ServeEngine(gpu, batch_slots=toks.shape[0], max_len=max_len)  # decode by graph replay
     reset_counts()
     with torch.inference_mode():
         lg, cache = gpu.prefill(toks.to(DEV), max_len=max_len)
+        cache = eng._decode_cache(cache, toks.shape[0])  # captures the step, copies the prefill's cache in
         want, want_cache = cpu.prefill(toks, max_len=max_len)
         for step in range(5):
             got = lg.cpu()
@@ -1118,16 +1223,18 @@ def phase_lm_parity(arch: str, *, n_layers: int = 2, prompt: int = 16, prepare=N
             tokens.append(nxt.tolist())
             if step == 4:
                 break
-            lg, cache = gpu.decode_step(cache, nxt.to(DEV), prompt + step)
+            lg = eng._decode(cache, nxt.numpy(), prompt + step)
             want, want_cache = cpu.decode_step(want_cache, nxt, prompt + step)
     counts = read_counts()
     check_counts(f"LM parity {arch}", counts, expected_counts(cfg, prefills=1, decode_steps=4))
     check_rings(arch, cache, cfg, max_len, prompt + 3)
-    print(f"[lm] {cfg.name} full width x {cfg.n_layers} layers fp32: prefill of {prompt} + 4 greedy steps, "
-          "card vs cpu "
+    if eng.eager or len(eng.capture_ms) != 1:
+        raise AssertionError(f"LM parity {arch}: decode did not run by graph replay")
+    print(f"[lm] {cfg.name} full width x {cfg.n_layers} layers fp32: prefill of {prompt} + 4 greedy steps "
+          f"(decode by graph replay, capture {next(iter(eng.capture_ms.values())):.1f} ms), card vs cpu "
           f"max |logit diff| {worst:.3e} (atol=rtol=1e-3), tokens identical {tokens}, "
           f"launches {counts}, {time.perf_counter() - t0:.1f} s" + (f"; {decays}" if decays else ""))
-    del cpu, gpu, cache, want_cache
+    del cpu, gpu, eng, cache, want_cache
     gc.collect()
     torch.cuda.empty_cache()
     return {"max_abs_err": worst, "launches": counts}
@@ -1222,6 +1329,55 @@ def routing(record: list | None = None, replay: list | None = None):
         raise AssertionError(f"routing replay: {len(pending)} recorded layer calls left over")
 
 
+ROUTE = moe_mod._route  # the package's own routing
+
+
+@contextlib.contextmanager
+def own_routing():
+    """The MoE layers route with the package's ``_route`` for the duration,
+    whatever :func:`routing` has bound: nothing recorded, nothing replayed."""
+    bound = moe_mod._route
+    moe_mod._route = ROUTE
+    try:
+        yield
+    finally:
+        moe_mod._route = bound
+
+
+@contextlib.contextmanager
+def layers_checked(worst: dict):
+    """During a run with the plain versions: each attention layer's output
+    and each MoE layer's output before its residual add, computed a second
+    time through the kernels on the same inputs (the plain run's own
+    activations; an MoE layer routes the same on the same inputs, the
+    router runs no kernel), within the kernel's per-call limit of max
+    |plain| (flash and moe_gmm, 2e-2).  The largest ratio of each kind
+    goes to ``worst["attention layer"]`` and ``worst["moe layer"]``.  The
+    plain run's outputs pass on unchanged."""
+    saved = transformer_mod.attention_kv, transformer_mod.moe_ffn
+
+    def checked(kind: str, fn, tol: float):
+        def call(*args, **kw):
+            want = fn(*args, **kw)
+            with kernels_as(KERNEL), own_routing():
+                got = fn(*args, **kw)
+            g, w = got[0].float(), want[0].float()
+            r = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            worst[kind] = max(worst.get(kind, 0.0), r)
+            if r > tol:
+                raise AssertionError(f"{kind} output on the model's inputs {tuple(args[1].shape)}: max |kernels - "
+                                     f"plain| / max |plain| = {r:.3g} beyond {tol}")
+            return want
+        return call
+
+    transformer_mod.attention_kv = checked("attention layer", saved[0], PER_CALL_TOL["flash_attention"])
+    transformer_mod.moe_ffn = checked("moe layer", saved[1], PER_CALL_TOL["moe_gmm"])
+    try:
+        yield
+    finally:
+        transformer_mod.attention_kv, transformer_mod.moe_ffn = saved
+
+
 def flash_plain_toward_zero(q, k, v, **kw):
     """The plain flash with its fp32 output rounded to bf16 toward zero
     instead of to nearest: for every element one of the two bf16 values
@@ -1264,8 +1420,11 @@ def phase_lm_bf16(arch: str, *, n_layers: int = 2, batch: int = 4, prompt: int =
     checked = {name: on_inputs(KERNEL[name], PLAIN[name], PER_CALL_TOL[name], worst, name) for name in KERNEL}
     checked["ssd_scan"] = on_inputs(ssd_scan, ssd_scan_plain, SSD_TOL, worst, "ssd_scan", ssd_scan_f64, against)
 
-    def prefill(model, toks, kernels, **route):
-        with torch.inference_mode(), kernels_as(kernels), routing(**route):
+    layers: dict[str, float] = {}  # each attention and MoE layer's output, kernels against plain
+
+    def prefill(model, toks, kernels, check_layers=False, **route):
+        checks = layers_checked(layers) if check_layers else contextlib.nullcontext()
+        with torch.inference_mode(), kernels_as(kernels), routing(**route), checks:
             out, _ = model.prefill(toks, max_len=prompt)
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
@@ -1276,7 +1435,7 @@ def phase_lm_bf16(arch: str, *, n_layers: int = 2, batch: int = 4, prompt: int =
     for seed in seeds:
         toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (batch, prompt))).to(DEV)
         routes: list = []
-        want = prefill(lm, toks, PLAIN, record=routes)
+        want = prefill(lm, toks, PLAIN, check_layers=True, record=routes)
         reset_counts()
         got = prefill(lm, toks, checked, replay=routes)
         counts = read_counts()
@@ -1312,10 +1471,15 @@ def phase_lm_bf16(arch: str, *, n_layers: int = 2, batch: int = 4, prompt: int =
           + (f"; ssd_scan against a float64 recurrence on the same inputs, max |x - f64| / max |f64|: kernel "
              f"{against['kernel']:.3e}, plain {against['plain']:.3e}" if against else "")
           + f"; {time.perf_counter() - t0:.1f} s")
+    if layers:
+        print(f"[lm-bf16] {cfg.name}: each layer's output before its residual add, through the kernels against the "
+              f"plain versions on the plain run's activations, max |kernels - plain| / max |plain| over "
+              f"{len(seeds)} seeds: " + ", ".join(f"{k} {v:.3e} (limit {PER_CALL_TOL['flash_attention' if k.startswith('attention') else 'moe_gmm']:g})"
+                                                  for k, v in layers.items()))
     del cpu, lm, lm32
     gc.collect()
     torch.cuda.empty_cache()
-    return {"gap": max(gaps), "floor": max(floors), **worst}
+    return {"gap": max(gaps), "floor": max(floors), **worst, **layers}
 
 
 def phase_prefill_long(arch: str) -> dict:
@@ -1370,122 +1534,179 @@ def phase_prefill_long(arch: str) -> dict:
 
 
 class TimedLM:
-    """The serving engine's model, with each prefill and decode step timed
-    on the host clock between ``torch.cuda.synchronize()`` calls and its
-    logits checked finite.  Everything else passes through."""
+    """The serving engine's model, with each prefill timed on the host clock
+    between ``torch.cuda.synchronize()`` calls and its logits checked
+    finite.  Everything else passes through (decode steps are timed at the
+    engine, where a replay happens)."""
 
     def __init__(self, lm):
         self.lm = lm
         self.prefill_ms: list[tuple[tuple, float]] = []
-        self.decode_ms: list[float] = []
         self.finite = True
 
     def __getattr__(self, name):
         return getattr(self.lm, name)
 
-    def _timed(self, fn, *args, **kw):
+    def prefill(self, tokens, max_len=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn(*args, **kw)
+        out = self.lm.prefill(tokens, max_len=max_len)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        self.prefill_ms.append((tuple(tokens.shape), (time.perf_counter() - t0) * 1e3))
         self.finite &= bool(torch.isfinite(out[0]).all())
-        return out, ms
-
-    def prefill(self, tokens, max_len=None):
-        out, ms = self._timed(self.lm.prefill, tokens, max_len=max_len)
-        self.prefill_ms.append((tuple(tokens.shape), ms))
-        return out
-
-    def decode_step(self, cache, tokens, position):
-        out, ms = self._timed(self.lm.decode_step, cache, tokens, position)
-        self.decode_ms.append(ms)
         return out
 
 
-def decode_breakdown(lm, steps: int = 3) -> None:
+def time_decodes(eng, timed: TimedLM, sink: list) -> None:
+    """Time each of ``eng``'s lock-step decodes (one graph replay, or one
+    eager ``decode_step``, with the engine's copies of tokens and
+    position) on the host clock between synchronizes into ``sink``, and
+    check its logits finite."""
+    inner = eng._decode
+
+    def decode(cache, cur, pos):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = inner(cache, cur, pos)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        timed.finite &= bool(torch.isfinite(logits).all())
+        return logits
+
+    eng._decode = decode
+
+
+def decode_breakdown(label: str, step, steps: int = 3) -> dict:
     """Where a decode step's time goes: ``torch.profiler`` over ``steps``
-    decode steps at the serving shape (4 slots, 24 positions filled),
-    device kernel time by name against the host clock."""
+    calls of ``step(i)`` (one decode at the serving shape, 4 slots, 24
+    positions filled), device time by name against the host clock."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    B, S = SERVE_SLOTS, 24
-    with torch.inference_mode():
-        toks = torch.zeros((B, S), dtype=torch.int64, device=DEV)
-        _, cache = lm.prefill(toks, max_len=serve.MAX_LEN)
-        nxt = torch.zeros(B, dtype=torch.int64, device=DEV)
-        lm.decode_step(cache, nxt, S)
+    step(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(1 + i)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(steps):
-                lm.decode_step(cache, nxt, S + 1 + i)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_name: dict[str, list[float]] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     if not by_name:
-        print(f"[serve] decode breakdown: wall {wall_ms:.3f} ms per step; device time not measured "
+        print(f"[serve] decode breakdown, {label}: wall {wall_ms:.3f} ms per step; device time not measured "
               "(the profiler recorded no CUDA events)")
-        return
+        return {"wall_ms": wall_ms, "busy_ms": None}
     busy_ms = sum(sum(v) for v in by_name.values()) / 1e3 / steps
     launches = sum(len(v) for v in by_name.values()) / steps
-    print(f"[serve] decode breakdown (torch.profiler, {steps} steps, B={B}): wall {wall_ms:.3f} ms per step, "
-          f"device busy {busy_ms:.3f} ms ({launches:.0f} device ops per step), "
+    print(f"[serve] decode breakdown, {label} (torch.profiler, {steps} steps, B={SERVE_SLOTS}): wall {wall_ms:.3f} "
+          f"ms per step, device busy {busy_ms:.3f} ms ({launches:.0f} device ops per step), "
           f"device idle {100 * (1 - busy_ms / wall_ms):.1f} %; top device ops, ms per step:")
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
     for name, us in top:
         print(f"    {sum(us) / 1e3 / steps:8.4f}  x{len(us) // steps:<4d} {name[:100]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+def serve_runs(eng, cfg, timed: TimedLM, runs: int) -> list[dict]:
+    """``runs`` calls of ``eng.run()`` on launch.serve's requests, each
+    with its launch counts from 0 just before and read just after, checked
+    exact: flash and the scans once per layer per prefill, moe_gmm three
+    times per MoE layer per prefill and per decode step."""
+    out = []
+    for _ in range(runs):
+        steps0, refills0 = eng.decode_steps, eng.refills
+        timed.prefill_ms.clear()
+        decode_ms: list[float] = []
+        time_decodes(eng, timed, decode_ms)
+        serve.submit_requests(eng, cfg, SERVE_REQUESTS, SERVE_NEW)
+        reset_counts()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        del eng._decode  # back to the engine's own method
+        prefills, steps = len(timed.prefill_ms), eng.decode_steps - steps0
+        check_counts(f"serve {cfg.name}", counts, expected_counts(cfg, prefills, steps))
+        if len(decode_ms) != steps:
+            raise AssertionError(f"serve {cfg.name}: {len(decode_ms)} timed decode steps, the engine counted {steps}")
+        if sorted(r.rid for r in done) != list(range(SERVE_REQUESTS)):
+            raise AssertionError(f"serve {cfg.name}: served {[r.rid for r in done]}, expected all {SERVE_REQUESTS}")
+        for r in done:
+            if len(r.out_tokens) != SERVE_NEW or r.truncated or not all(0 <= t < cfg.vocab for t in r.out_tokens):
+                raise AssertionError(f"serve {cfg.name}: request {r.rid} gave {r.out_tokens} (truncated={r.truncated})")
+        if not timed.finite:
+            raise AssertionError(f"serve {cfg.name}: logits not finite")
+        out.append({
+            "served": [(r.rid, len(r.prompt), tuple(r.out_tokens), r.truncated) for r in sorted(done, key=lambda r: r.rid)],
+            "decode_steps": steps, "refills": eng.refills - refills0, "prefills": prefills, "launches": counts,
+            "run_s": run_s, "tokens": sum(len(r.out_tokens) for r in done), "decode_ms": decode_ms,
+            "prefill_ms": list(timed.prefill_ms),
+        })
+    return out
 
 
 def phase_serve(arch: str) -> dict:
-    """launch.serve's engine on ``arch``, full width and depth, bf16."""
+    """launch.serve's engine on ``arch``, full width and depth, bf16: decode
+    by graph replay (the default on the card) and op by op (``eager=True``)
+    on one model, one warm-up ``run()`` and 3 timed ones each."""
     cfg = get_config(arch)
     t0 = time.perf_counter()
-    eng = serve.build_engine(cfg, "cuda", slots=SERVE_SLOTS)
+    graph_eng = serve.build_engine(cfg, "cuda", slots=SERVE_SLOTS)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    timed = TimedLM(eng.model)
-    eng.model = timed
-    serve.submit_requests(eng, cfg, SERVE_REQUESTS, SERVE_NEW)
-    # the main path: counts from 0 just before, read just after
-    reset_counts()
-    t1 = time.perf_counter()
-    done = eng.run()
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t1
-    counts = read_counts()
-    prefills, steps = len(timed.prefill_ms), len(timed.decode_ms)
-    check_counts(f"serve {arch}", counts, expected_counts(cfg, prefills, steps))
-    if steps != eng.decode_steps:
-        raise AssertionError(f"serve {arch}: {steps} timed decode steps, the engine counted {eng.decode_steps}")
-    if sorted(r.rid for r in done) != list(range(SERVE_REQUESTS)):
-        raise AssertionError(f"serve {arch}: served {[r.rid for r in done]}, expected all {SERVE_REQUESTS}")
-    for r in done:
-        if len(r.out_tokens) != SERVE_NEW or r.truncated or not all(0 <= t < cfg.vocab for t in r.out_tokens):
-            raise AssertionError(f"serve {arch}: request {r.rid} gave {r.out_tokens} (truncated={r.truncated})")
-    if not timed.finite:
-        raise AssertionError(f"serve {arch}: logits not finite")
-    new_tokens = sum(len(r.out_tokens) for r in done)
-    for r in sorted(done, key=lambda r: r.rid):
-        print(f"[serve] rid={r.rid} prompt_len={len(r.prompt)} out={r.out_tokens}")
-    dec = sorted(timed.decode_ms)
-    print(f"[serve] {cfg.name} full width x {cfg.n_layers} layers bf16 ({sum(p.numel() for p in eng.model.parameters()) / 1e9:.2f} B params), "
-          f"slots {SERVE_SLOTS}, max_len {serve.MAX_LEN}: weights built in {build_s:.2f} s; "
-          f"{len(done)} requests, {new_tokens} tokens in {run_s:.3f} s ({new_tokens / run_s:.1f} tok/s); "
-          f"refills {eng.refills}, decode steps {eng.decode_steps}, {prefills} prefills; launches {counts}")
-    print("[serve] prefill ms (tokens shape): "
-          + ", ".join(f"{ms:.3f} {list(shape)}" for shape, ms in timed.prefill_ms))
-    print(f"[serve] decode ms per step: median {dec[len(dec) // 2]:.3f}, min {dec[0]:.3f}, max {dec[-1]:.3f} "
-          f"over {len(dec)} steps")
-    decode_breakdown(timed.lm)
-    del eng, timed, done
+    lm = graph_eng.model
+    eager_eng = ServeEngine(lm, batch_slots=SERVE_SLOTS, max_len=serve.MAX_LEN, eager=True)
+    if graph_eng.eager or not eager_eng.eager:
+        raise AssertionError(f"serve {arch}: the engine on the card must decode by graph unless asked not to")
+    results = {}
+    for mode, eng in (("graph", graph_eng), ("eager", eager_eng)):
+        timed = TimedLM(lm)
+        eng.model = timed
+        results[mode] = serve_runs(eng, cfg, timed, runs=4)
+        eng.model = lm
+    first = results["eager"][0]
+    for mode, runs in results.items():
+        for i, r in enumerate(runs):
+            for key in ("served", "decode_steps", "refills", "prefills", "launches"):
+                if r[key] != first[key]:
+                    raise AssertionError(f"serve {arch}: {mode} run {i} {key} {r[key]} differs from eager run 0's "
+                                         f"{first[key]}")
+    for rid, plen, toks, _ in first["served"]:
+        print(f"[serve] rid={rid} prompt_len={plen} out={list(toks)}")
+    per_step = {mode: float(np.median([np.mean(r["decode_ms"]) for r in runs[1:]])) for mode, runs in results.items()}
+    tok_s = {mode: float(np.median([r["tokens"] / r["run_s"] for r in runs[1:]])) for mode, runs in results.items()}
+    g = results["graph"][1]
+    print(f"[serve] {cfg.name} full width x {cfg.n_layers} layers bf16 ({sum(p.numel() for p in lm.parameters()) / 1e9:.2f} B params), "
+          f"slots {SERVE_SLOTS}, max_len {serve.MAX_LEN}: weights built in {build_s:.2f} s; {len(first['served'])} "
+          f"requests, {g['tokens']} tokens per run; refills {g['refills']}, decode steps {g['decode_steps']}, "
+          f"{g['prefills']} prefills; launches per run {g['launches']}; graph and eager identical in tokens, "
+          f"truncation, decode steps, refills and launches over {len(results['graph'])} + {len(results['eager'])} runs")
+    print(f"[serve] capture ms per (rows, max_len): "
+          + ", ".join(f"{key} {ms:.1f}" for key, ms in graph_eng.capture_ms.items()))
+    for mode, runs in results.items():
+        print(f"[serve] {mode}: decode ms per step, median over runs 2-4 of each run's mean {per_step[mode]:.3f} "
+              f"(run means {', '.join(f'{np.mean(r['decode_ms']):.3f}' for r in runs)}; first run warm-up); tok/s "
+              f"{tok_s[mode]:.1f} (runs {', '.join(f'{r['tokens'] / r['run_s']:.1f}' for r in runs)}); prefill ms "
+              f"(tokens shape) {', '.join(f'{ms:.3f} {list(shape)}' for shape, ms in runs[1]['prefill_ms'])}")
+    print(f"[serve] {cfg.name}: decode ms per step graph {per_step['graph']:.3f} vs eager {per_step['eager']:.3f} "
+          f"({per_step['eager'] / per_step['graph']:.2f}x); tok/s graph {tok_s['graph']:.1f} vs eager {tok_s['eager']:.1f}")
+    B, S = SERVE_SLOTS, 24
+    with torch.inference_mode():
+        toks = torch.zeros((B, S), dtype=torch.int64, device=DEV)
+        nxt = np.zeros(B, np.int64)
+        _, cache = lm.prefill(toks, max_len=serve.MAX_LEN)
+        eager_b = decode_breakdown("eager", lambda i: lm.decode_step(cache, torch.from_numpy(nxt).to(DEV), S + i))
+        gcache = graph_eng._decode_cache(lm.prefill(toks, max_len=serve.MAX_LEN)[1], B)
+        graph_b = decode_breakdown("graph", lambda i: graph_eng._decode(gcache, nxt, S + i))
+    del graph_eng, eager_eng, lm, cache, gcache
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": counts, "prefills": prefills, "decode_steps": steps}
+    return {"launches": g["launches"], "prefills": g["prefills"], "decode_steps": g["decode_steps"],
+            "decode_ms": per_step, "tok_s": tok_s, "breakdown": {"eager": eager_b, "graph": graph_b}}
 
 
 # the Pallas kernel body each CUDA kernel replaces
@@ -1563,7 +1784,8 @@ def main() -> None:
 
     big = max(gemm["rows"], key=lambda r: r["shape"][1] * r["shape"][2])
     entries = [
-        kernel_entry("matmul_requant", cnn["launches"], gemm, big),
+        kernel_entry("matmul_requant", cnn["launches"], gemm, big, launch_floor_ms=big["launch_floor_ms"],
+                     launch_floor_1x32_ms=gemm["launch_floor_ms"], launches_aot=cnn["launches_aot"]),
         # the serving engine's prefill shape first
         kernel_entry("flash_attention", served[LM_ARCH]["launches"]["flash_attention"], flash, flash_rows[0],
                      max_abs_err_f32=flash["max_abs_err_f32"], prefill_shapes=shapes(flash_rows),

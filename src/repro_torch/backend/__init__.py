@@ -11,11 +11,22 @@ The port of ``repro.backend``'s main path.  It walks a
   capacities,
 * **runs** the result on its device with per-segment timing and a
   predicted-vs-measured report, checked bit-exact against the CPU
-  interpreter (:mod:`.runtime`).
-
-The reference's AOT executor (``repro.backend.aot``) is not ported yet.
+  interpreter (:mod:`.runtime`), and
+* **captures the whole graph in one CUDA graph** — all segments in
+  schedule order, zero per-segment host dispatch, the static memory plan
+  expressible as one flat arena with double-buffered cross-module
+  staging (:mod:`.aot`).
 """
 
+from .aot import (
+    AotCompileError,
+    AotEntry,
+    AotModel,
+    ChainExecutor,
+    build_chains,
+    compile_aot,
+    make_chain_executor,
+)
 from .lower import LoweredSegment, LoweringError, lower
 from .memory import ArenaView, BufferAlloc, MemoryPlan, MemoryPlanError, plan_memory
 from .runtime import (
@@ -42,4 +53,11 @@ __all__ = [
     "SegmentTiming",
     "UnsetFrequencyWarning",
     "as_input_array",
+    "AotCompileError",
+    "AotEntry",
+    "AotModel",
+    "ChainExecutor",
+    "build_chains",
+    "compile_aot",
+    "make_chain_executor",
 ]

@@ -187,6 +187,7 @@ class CompiledModel:
     device: torch.device
     attrs: dict = field(default_factory=dict)
     _last_timings: list[SegmentTiming] = field(default_factory=list, repr=False)
+    _aot: object = field(default=None, repr=False)
 
     @property
     def graph(self):
@@ -354,11 +355,25 @@ class CompiledModel:
             out[ls.route] = out.get(ls.route, 0) + 1
         return out
 
+    # -- AOT ------------------------------------------------------------
+    def to_aot(self, **kw):
+        """The whole-graph AOT executor for this model
+        (:func:`repro_torch.backend.aot.compile_aot`): all segments
+        captured in one CUDA graph on the card, bit-exact with :meth:`run`
+        by construction.  Cached — repeated calls with no overrides return
+        the same :class:`~repro_torch.backend.aot.AotModel`, whose stats
+        then ship in ``report_dict()["aot"]``."""
+        from .aot import compile_aot  # no cycle: late import
+
+        if self._aot is None or kw:
+            self._aot = compile_aot(self, **kw)
+        return self._aot
+
     def report_dict(self) -> dict:
         """Machine-readable companion of :meth:`report`: predicted cycles,
         memory plan, and any measured timings in one JSON-safe payload.
-        The reference's keys, less ``pipeline``, ``serve`` and ``aot``
-        (not ported yet), plus ``device``."""
+        The reference's keys, less ``pipeline`` and ``serve`` (not ported
+        yet), plus ``device``; ``aot`` once :meth:`to_aot` has built one."""
         g, t = self.graph, self.target
         measured = {tm.name: tm for tm in self._last_timings}
         segments = []
@@ -398,6 +413,10 @@ class CompiledModel:
                 "slo": obs.slo_dict(),
             },
         }
+        if self._aot is not None:
+            # capture cost, plan coverage, staging and measured dispatch
+            # overhead of the whole-graph AOT executor
+            out["aot"] = self._aot.stats()
         if measured:
             out["measured_total_us"] = sum(tm.measured_us for tm in self._last_timings)
             out["timings"] = [tm.to_dict() for tm in self._last_timings]

@@ -25,13 +25,14 @@ from repro_torch.serving import Request, ServeEngine
 MAX_LEN = 256
 
 
-def build_engine(cfg, device=None, *, slots: int = 4) -> ServeEngine:
+def build_engine(cfg, device=None, *, slots: int = 4, eager: bool = False) -> ServeEngine:
     """The LM of ``cfg`` on ``device`` (weights from a generator seeded 0)
-    inside a ``ServeEngine`` with ``max_len=256``."""
+    inside a ``ServeEngine`` with ``max_len=256``; ``eager`` as the
+    engine's (decode op by op instead of by graph replay on the card)."""
     assert cfg.decoder, f"{cfg.name} is encoder-only; nothing to decode"
     dev = resolve_device(device)
     model = LM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
-    return ServeEngine(model, batch_slots=slots, max_len=MAX_LEN)
+    return ServeEngine(model, batch_slots=slots, max_len=MAX_LEN, eager=eager)
 
 
 def submit_requests(eng: ServeEngine, cfg, n: int, max_new: int, temperature: float = 0.0) -> None:
@@ -58,10 +59,11 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument("--eager", action="store_true", help="decode op by op, not by CUDA graph replay")
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    eng = build_engine(cfg, args.device, slots=args.slots)
+    eng = build_engine(cfg, args.device, slots=args.slots, eager=args.eager)
 
     t0 = time.time()
     submit_requests(eng, cfg, args.requests, args.max_new, args.temperature)

@@ -162,7 +162,7 @@ def decode_attention(
     params: dict,
     x: torch.Tensor,  # (B, 1, D)
     cache: KVCache,
-    position: int,  # index of the new token
+    position: int | torch.Tensor,  # index of the new token
     cfg: ModelConfig,
     *,
     window: int | None = None,
@@ -171,22 +171,24 @@ def decode_attention(
 
     The cache is written in place (slot ``position``, clamped into the
     cache as ``lax.dynamic_update_slice`` clamps) and returned.
+    ``position`` is an int or a 0-d integer tensor; either way it is used
+    on the device, with no host sync.
     """
     hd = cfg.head_dim_
-    position = int(position)
+    pos = torch.as_tensor(position, device=x.device).to(torch.int32)
+    pos1 = pos.reshape(1)
     q, k_new, v_new = _qkv(params, x, cfg)
     if cfg.pos_kind != "none":
-        pos = torch.tensor([position], dtype=torch.int32, device=x.device)
-        sin, cos = rope_tables(pos, hd, cfg.rope_theta)
+        sin, cos = rope_tables(pos1, hd, cfg.rope_theta)
         q = apply_rope(q, sin, cos)
         k_new = apply_rope(k_new, sin, cos)
     S_max = cache.k.shape[1]
-    slot = min(max(position, 0), S_max - 1)
-    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    slot = pos1.clamp(0, S_max - 1).long()
+    cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
     k_pos = torch.arange(S_max, device=x.device)
-    valid = k_pos <= position
+    valid = k_pos <= pos
     if window is not None:
-        valid &= k_pos > position - window
+        valid &= k_pos > pos - window
     out = _attend_cache(q, cache.k, cache.v, valid, cfg, x.dtype)
     return out @ params["wo"], cache

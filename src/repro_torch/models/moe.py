@@ -14,7 +14,8 @@ and its default formulation (``moe_dispatch="token"``,
   order ``(E, B*C, D)``: the batch rows are folded into the kernel's
   capacity axis, so nothing is transposed.  Slots that no token fills
   hold zeros (the reference fills them with a clipped token's row); no
-  output reads them.
+  output reads them.  Routing, dispatch and combine make no host sync
+  (no boolean-mask indexing), so a CUDA graph captures a decode step.
 * The three expert products run through :func:`repro_torch.kernels.moe_gmm`
   (the hand-written CUDA kernel on the card), where the reference has
   ``jnp.einsum``.
@@ -54,6 +55,12 @@ def moe_capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
     return max(8, -(-c // 8) * 8)  # pad to sublane multiple
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` as int32, without its range check (a host
+    sync on the CPU)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(torch.int32)
+
+
 def _route(probs: torch.Tensor, K: int, C: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routing with per-expert capacity: (slots, gates), each
     (B, S, K).  A slot is ``expert * C + position`` or -1 (dropped)."""
@@ -64,7 +71,7 @@ def _route(probs: torch.Tensor, K: int, C: int) -> tuple[torch.Tensor, torch.Ten
     for _ in range(K):
         gate = remaining.amax(dim=-1)  # (B, S)
         idx = remaining.argmax(dim=-1)  # first index on ties, as jnp.argmax
-        oh = F.one_hot(idx, E).to(torch.int32)  # (B, S, E)
+        oh = _one_hot(idx, E)  # (B, S, E)
         pos = torch.cumsum(oh, dim=1, dtype=torch.int32) - 1 + counts[:, None, :]
         counts = counts + oh.sum(dim=1, dtype=torch.int32)
         my_pos = (pos * oh).sum(dim=-1, dtype=torch.int32)  # (B, S)
@@ -94,10 +101,13 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
     b_idx = torch.arange(B, device=x.device)[:, None, None].expand(B, S, K)
     s_idx = torch.arange(S, device=x.device)[None, :, None].expand(B, S, K)
     dst = (e_idx * B + b_idx) * C + c_idx  # row of (E, B*C); every kept one is unique
-    src_for_slot = torch.full((E * B * C,), B * S, dtype=torch.int64, device=x.device)
-    src_for_slot[dst[kept].long()] = (b_idx * S + s_idx)[kept]
+    # every (b, s, k) is scattered, a dropped one onto a spare last row that
+    # is cut off: no mask selects, so nothing waits on the host
+    spare = E * B * C
+    src_for_slot = torch.full((spare + 1,), B * S, dtype=torch.int64, device=x.device)
+    src_for_slot.scatter_(0, torch.where(kept, dst, spare).reshape(-1), (b_idx * S + s_idx).reshape(-1))
     xpad = torch.cat([x.reshape(B * S, D), x.new_zeros((1, D))])
-    dispatched = xpad[src_for_slot].reshape(E, B * C, D)
+    dispatched = xpad[src_for_slot[:spare]].reshape(E, B * C, D)
 
     # ---- expert computation (the only FLOP-heavy part) -------------------
     g = moe_gmm(dispatched, params["wi_gate"])
@@ -107,12 +117,12 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
 
     # ---- combine: each token's K slots back through one zero pad row -------
     eo_pad = torch.cat([eo, eo.new_zeros((1, D))])
-    gather = torch.where(kept, dst, E * B * C).long()  # (B, S, K)
+    gather = torch.where(kept, dst, spare)  # (B, S, K)
     tok_out = eo_pad[gather]  # (B, S, K, D)
     y = torch.sum(tok_out * gates[..., None].to(tok_out.dtype), dim=2).to(x.dtype)
 
     # ---- load-balancing aux loss (Switch/GShard) --------------------------
     me = probs.mean(dim=(0, 1))  # (E,)
-    ce = F.one_hot(logits.argmax(dim=-1), E).float().mean(dim=(0, 1))
+    ce = _one_hot(logits.argmax(dim=-1), E).float().mean(dim=(0, 1))
     aux = E * torch.sum(me * ce)
     return y, aux

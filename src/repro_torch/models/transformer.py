@@ -180,6 +180,10 @@ class LM(nn.Module):
         # the block type of each entry of self.layers
         self.block_types = [bt for st in self.stacks for _ in range(st.repeats) for bt in st.pattern]
         self.top = _Params(tree)  # embed, final_norm (and lm_head)
+        # gemma-style input scale: sqrt in float32, rounded to the weights'
+        # dtype; made once, so no step copies it from the host
+        scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32)).to(torch_dtype(cfg.dtype))
+        self.register_buffer("embed_scale", scale.to(dev), persistent=False)
 
     # ------------------------------------------------------------------
     # Parameters
@@ -235,9 +239,7 @@ class LM(nn.Module):
         if embeds is not None:
             return embeds.to(torch_dtype(cfg.dtype))
         x = top["embed"][tokens]
-        # gemma-style scale: sqrt in float32, then rounded to the weights' dtype
-        scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32))
-        return x * scale.to(device=x.device, dtype=x.dtype)
+        return x * self.embed_scale.to(x.dtype)
 
     def _rope_for(self, positions: torch.Tensor | None, S: int):
         cfg = self.cfg
@@ -355,28 +357,31 @@ class LM(nn.Module):
                     out.append({name: leaf[r] for name, leaf in sc[f"b{j}_{bt}"].items()})
         return out
 
-    def _decode_attn(self, bt: str, ap: dict, x: torch.Tensor, lc: dict, position: int):
+    def _decode_attn(self, bt: str, ap: dict, x: torch.Tensor, lc: dict, pos: torch.Tensor):
         """Single-token attention over the ``pos``-tagged cache slots;
-        writes ``lc`` in place.  ``local_attn`` writes its ring buffer at
-        ``position % L`` and keeps the keys inside its window."""
+        writes ``lc`` in place.  ``pos`` is a 0-d int32 tensor on the
+        device: rope, the slot, the tag and the mask are computed there,
+        as the reference's traced ``jnp.int32`` position is.  ``local_attn``
+        writes its ring buffer at ``pos % L`` and keeps the keys inside its
+        window; ``attn`` clamps the slot into the buffer, as
+        ``lax.dynamic_update_slice`` does."""
         cfg = self.cfg
         q, k_new, v_new = attn_mod._qkv(ap, x, cfg)
+        pos1 = pos.reshape(1)
         if cfg.pos_kind != "none":
-            pos = torch.tensor([position], dtype=torch.int32, device=x.device)
-            sin, cos = rope_tables(pos, cfg.head_dim_, cfg.rope_theta)
+            sin, cos = rope_tables(pos1, cfg.head_dim_, cfg.rope_theta)
             q = attn_mod.apply_rope(q, sin, cos)
             k_new = attn_mod.apply_rope(k_new, sin, cos)
         L = lc["k"].shape[1]
-        # attn: lax.dynamic_update_slice clamps the slot into the buffer
-        slot = position % L if bt == "local_attn" else min(max(position, 0), L - 1)
-        lc["k"][:, slot] = k_new[:, 0]
-        lc["v"][:, slot] = v_new[:, 0]
-        lc["pos"][slot] = position
+        slot = (pos1 % L if bt == "local_attn" else pos1.clamp(0, L - 1)).long()
+        lc["k"].index_copy_(1, slot, k_new.to(lc["k"].dtype))
+        lc["v"].index_copy_(1, slot, v_new.to(lc["v"].dtype))
+        lc["pos"].index_copy_(0, slot, pos1)
         posbuf = lc["pos"]
-        valid = (posbuf >= 0) & (posbuf <= position)
+        valid = (posbuf >= 0) & (posbuf <= pos)
         window = self._window(bt)
         if window is not None:
-            valid &= posbuf > position - window
+            valid &= posbuf > pos - window
         out = attn_mod._attend_cache(q, lc["k"], lc["v"], valid, cfg, x.dtype)
         return out @ ap["wo"], lc
 
@@ -384,12 +389,18 @@ class LM(nn.Module):
         self,
         cache: dict,
         tokens: torch.Tensor,  # (B,) int
-        position: int,
+        position: int | torch.Tensor,
     ) -> tuple[torch.Tensor, dict]:
         """One autoregressive step: logits for the next token; the cache is
-        updated in place and returned."""
+        updated in place and returned.
+
+        ``position`` is an int or a 0-d integer tensor on the model's
+        device; both take one path, with the position on the device, and
+        the step makes no host sync, so a CUDA graph can capture it with
+        static ``cache``, ``tokens`` and ``position`` tensors
+        (:class:`repro_torch.serving.ServeEngine`)."""
         cfg = self.cfg
-        position = int(position)
+        pos = torch.as_tensor(position, device=self.device).to(torch.int32)
         top, layers = self._params()
         x = self._embed_in(top, tokens[:, None], None)
         for bt, bp, lc in zip(self.block_types, layers, self._layer_caches(cache)):
@@ -403,7 +414,7 @@ class LM(nn.Module):
                 out, state = rglru_decode_step(bp["rglru"], h, lc, cfg)
                 _copy_state(lc, state)
             else:
-                out, _ = self._decode_attn(bt, bp["attn"], h, lc, position)
+                out, _ = self._decode_attn(bt, bp["attn"], h, lc, pos)
             x, _ = self._ffn(bp, x + out)
         return self._head(top, x)[:, 0], cache
 

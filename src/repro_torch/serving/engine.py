@@ -21,6 +21,16 @@ The model is a :class:`repro_torch.models.LM`, which holds its own
 parameters and device (the card unless it was built with
 ``device="cpu"``).  The engine runs under ``torch.inference_mode()``;
 the cache is updated in place.
+
+Decode is the reference's compiled step (``jax.jit(model.decode_step)``,
+called with ``jnp.int32(pos)``).  On a CUDA model each lock-step decode
+is one replay of a CUDA graph, captured at first use per (batch rows,
+``max_len``) over static token, position, cache and logits tensors
+(:mod:`repro_torch._graphs`): the batch prefill's cache is copied into
+the static cache, refills merge rows into it in place, and the logits
+are sampled after each replay, before the next.  Prefill and refills run
+eagerly.  A step that cannot be captured raises; nothing falls back.  A
+CPU model, or ``eager=True``, runs ``decode_step`` op by op.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch._graphs import CapturedGraph, capture
 from repro_torch.models import LM
 from repro_torch.obs.log import MatchWarning
 from repro_torch.obs.log import warn as obs_warn
@@ -62,7 +73,25 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+@dataclass
+class _DecodeGraph:
+    """One captured decode step and the static tensors it replays over."""
+
+    tokens: torch.Tensor  # (B,) int64
+    position: torch.Tensor  # 0-d int32
+    cache: dict
+    step: CapturedGraph  # its output: the logits (B, V)
+
+
 class ServeEngine:
+    """Slot-refill serving of ``model``.
+
+    ``eager=True`` runs every decode step op by op, as the reference runs
+    under ``jax.disable_jit()``: the comparison the graph is held to.  By
+    default a CUDA model decodes by graph replay; a CPU model always runs
+    eagerly.
+    """
+
     def __init__(
         self,
         model: LM,
@@ -70,11 +99,14 @@ class ServeEngine:
         batch_slots: int = 4,
         max_len: int = 256,
         rng_seed: int = 0,
+        eager: bool = False,
     ):
         self.model = model
         self.batch_slots = batch_slots
         self.max_len = max_len
         self.rng = np.random.default_rng(rng_seed)
+        self.eager = eager or model.device.type != "cuda"
+        self._graphs: dict[tuple[int, int], _DecodeGraph] = {}
         self._queue: "queue.Queue[Request]" = queue.Queue()
         self._pending: list[Request] = []  # popped but not yet slotted
         # serving counters: decode iterations paid and slots recycled
@@ -131,6 +163,52 @@ class ServeEngine:
     def _tokens(self, toks: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(toks, np.int64)).to(self.model.device)
 
+    # -- the compiled decode step ----------------------------------------
+    @property
+    def capture_ms(self) -> dict[tuple[int, int], float]:
+        """Host ms each captured decode graph took (warm-up included), by
+        (batch rows, ``max_len``)."""
+        return {key: g.step.capture_ms for key, g in self._graphs.items()}
+
+    def _graph_for(self, rows: int) -> _DecodeGraph:
+        """The decode graph of ``rows`` batch rows, captured at first use
+        on a zero cache (its warm-up step writes nothing that the prefill's
+        copy does not overwrite)."""
+        key = (rows, self.max_len)
+        g = self._graphs.get(key)
+        if g is None:
+            dev = self.model.device
+            tokens = torch.zeros(rows, dtype=torch.int64, device=dev)
+            position = torch.zeros((), dtype=torch.int32, device=dev)
+            cache = self.model.init_cache(rows, self.max_len)
+            step = capture(lambda: self.model.decode_step(cache, tokens, position)[0], dev)
+            g = self._graphs[key] = _DecodeGraph(tokens, position, cache, step)
+        return g
+
+    def _decode_cache(self, cache, rows: int):
+        """The cache the decode steps use: the prefill's own when eager,
+        else the static cache of the graph for ``rows`` batch rows with the
+        prefill's copied in."""
+        if self.eager:
+            return cache
+        g = self._graph_for(rows)
+        for dst, src in zip(_leaves(g.cache), _leaves(cache)):
+            dst.copy_(src)
+        return g.cache
+
+    def _decode(self, cache, cur: np.ndarray, pos: int) -> torch.Tensor:
+        """One lock-step decode at position ``pos``; returns the logits
+        (B, V), which the next call overwrites when decoding by graph."""
+        if self.eager:
+            logits, _ = self.model.decode_step(cache, self._tokens(cur), pos)
+            return logits
+        g = self._graphs[(len(cur), self.max_len)]
+        if cache is not g.cache:
+            raise RuntimeError("decode by graph replay needs the graph's static cache")
+        g.tokens.copy_(torch.from_numpy(np.ascontiguousarray(cur, np.int64)))
+        g.position.fill_(pos)
+        return g.step.replay()
+
     # -- single-row prefill path (slot refill) --------------------------
     def _merge_row(self, cache, row_cache, i: int):
         """Write ``row_cache`` (batch 1) into row ``i`` of the shared
@@ -166,6 +244,7 @@ class ServeEngine:
             toks[i, plen - len(r.prompt) :] = r.prompt
 
         logits, cache = self.model.prefill(self._tokens(toks), max_len=self.max_len)
+        cache = self._decode_cache(cache, B)
         pos = plen
         slots = list(reqs)
         live = [True] * B
@@ -211,7 +290,7 @@ class ServeEngine:
                     TruncationWarning,
                 )
                 return served
-            logits, cache = self.model.decode_step(cache, self._tokens(cur), pos)
+            logits = self._decode(cache, cur, pos)
             self.decode_steps += 1
             cur = self._sample(logits, slots)
             pos += 1

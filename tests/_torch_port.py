@@ -5,6 +5,8 @@ reference suite's ``budget=300``; inputs are the conformance harness's
 (``tests/conformance/harness.py``), made with numpy from seed 0 and handed
 as numpy to both packages.  :func:`perturb_rglru` draws the RG-LRU decay
 parameters of an LM tree so that the recurrence carries across time.
+:class:`NoHostSync` fails on the CPU on what would break a CUDA graph's
+capture on the card.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import repro.backend
 import repro.cnn
@@ -117,3 +121,29 @@ def perturb_rglru(params: dict, seed: int) -> dict:
         return out
 
     return walk(params)
+
+
+_aten = torch.ops.aten
+
+
+class NoHostSync(TorchDispatchMode):
+    """Raise on every aten call that would stall or break a CUDA graph's
+    capture: reading a tensor on the host (``.item()``, ``int()``,
+    ``bool()``: ``_local_scalar_dense``), shapes that depend on data
+    (``nonzero``, ``masked_select``, indexing or assigning through a
+    boolean mask) and a tensor built from host data (``torch.tensor``:
+    ``lift_fresh``, a pageable copy to the card).  Run on the CPU, it finds
+    on a machine with no card what would fail the capture there."""
+
+    _FORBIDDEN = {_aten._local_scalar_dense, _aten.nonzero, _aten.masked_select, _aten.lift_fresh}
+    _INDEXING = {_aten.index, _aten.index_put, _aten.index_put_}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        op = func.overloadpacket
+        if op in self._FORBIDDEN:
+            raise AssertionError(f"host sync: {func}")
+        if op in self._INDEXING and any(
+            isinstance(t, torch.Tensor) and t.dtype == torch.bool for t in args[1]
+        ):
+            raise AssertionError(f"host sync: {func} through a boolean mask")
+        return func(*args, **(kwargs or {}))
