@@ -32,9 +32,11 @@ failure:
    within 1e-4 of its plain version and of the sequential oracle on the
    kernel test grid, ragged T and W, strided and bf16 operands and
    recurrentgemma-2b's shapes (T on each side of one 64-step chunk, and
-   (1, 4096), (1, 4097)); then times of each at its path's shapes
-   (``matmul_requant`` beside the launch floor: an empty kernel at its
-   launch shape, and at 1 block x 32 threads, in a CUDA graph; flash
+   (1, 4096), (1, 4097)); ``matmul_requant`` also at M in {2, 16} on
+   DAE's five (K, N), the rows of a served batch; then times of each at its
+   path's shapes (``matmul_requant`` at M = 1 and at DAE's served M = 16,
+   beside the launch floor: an empty kernel at its launch shape, and at 1
+   block x 32 threads, in a CUDA graph; flash
    also at recurrentgemma-2b's local-attention shape) beside the plain
    version, one PyTorch library call where there is one, the bound, and,
    printed only, the time the same kernel took before its redesign
@@ -42,7 +44,8 @@ failure:
    the device kernels one call issues, by ``torch.profiler``; and
    ``ssd_scan``'s time with each count of heads per output block, the
    data behind the wrapper's ``heads_per_block``;
-4. CNN path: the four MLPerf-Tiny nets x {gap9, diana} through
+4. CNN path: the four MLPerf-Tiny nets x {gap9, diana, h100} (h100, the
+   card's own target, registered explicitly) through
    ``repro_torch.core.dispatch`` -> ``repro_torch.backend.lower`` (default
    device) -> 4 requests through ``CompiledModel.run``, each output
    bit-exact with the port's CPU interpreter, and the GEMM launch count
@@ -52,8 +55,29 @@ failure:
    ``CompiledModel.run`` and the interpreter, a rerun of the first request
    exact (the arena reused), the same GEMM launch count under replay; and
    ms per request eager / AOT xla / AOT arena (host clock to
-   ``torch.cuda.synchronize()``, median of 5 after a warm-up);
-5. LM parity: qwen2.5-3b, granite-moe-3b-a800m and mamba2-1.3b at full
+   ``torch.cuda.synchronize()``, median of 5 after a warm-up); conv
+   bands per request on h100 beside gap9's; on h100, one timed run per
+   net: each segment's predicted cycles against its CUDA-event time in
+   the target's cycles;
+5. ``[pipeline]``, ``benchmarks/pipeline_throughput.py`` on the card: the
+   four nets x {gap9, diana, ne16_octa}, 12 inputs through
+   ``PipelinedModel.run_stream`` (one CUDA stream per module lane, 3
+   inputs in flight), per segment and with every lane chain a captured
+   CUDA graph (``aot=True``); each streamed run repeated 5 times, every
+   output bit-exact with ``CompiledModel.run`` (the first also with the
+   CPU interpreter) and the GEMM launches exact; µs per input sequential
+   against streamed beside ``predicted_speedup()`` and the stream bound;
+6. ``[cnn-serve]``, ``benchmarks/serve_load.py`` on the card: DAE and
+   DS-CNN x {gap9, ne16_octa, h100}, 96 requests offered open-loop
+   (Poisson, seed 1) at 6x the measured sequential rate to a
+   ``ModelServer`` of 16 slots and 2 batches in flight, in ``mode="aot"``
+   (one captured graph per batch shape) and ``mode="pipeline"``: every
+   served row bit-exact with the sequential run, itself bit-exact with
+   the CPU interpreter; GEMM launches = GEMM segments x batches; every
+   request completed, none rejected; sequential and sustained requests
+   per second, p50/p99 latency, capture ms per batch shape and the SLO
+   verdict (which must be ok);
+7. LM parity: qwen2.5-3b, granite-moe-3b-a800m and mamba2-1.3b at full
    width, 2 layers, float32, a 16-token prefill, and recurrentgemma-2b at
    full width, 3 layers (rglru, rglru, local_attn), float32, a 2048-token
    prefill that fills its local-attention ring, with RG-LRU decays drawn
@@ -61,7 +85,7 @@ failure:
    steps (recurrentgemma's wrap the ring) on the card (the kernels, decode
    by the serving engine's captured CUDA graph) against the same module on
    the CPU (plain versions), logits within 1e-3 and identical tokens;
-6. bf16 LM check of the kernels: qwen2.5-3b, granite-moe-3b-a800m and
+8. bf16 LM check of the kernels: qwen2.5-3b, granite-moe-3b-a800m and
    mamba2-1.3b at full width, 2 layers, a (4, 512) prefill, and
    recurrentgemma-2b, 3 layers, a (2, 4096) prefill (the window of 2048
    bites), three prompt batches each, bf16 on the card, against the same
@@ -80,14 +104,14 @@ failure:
    largest |logit| or within the model's floor where that is larger (the
    gap that rounding the plain flash's output toward zero makes); greedy
    agreement and the gap with each run routing itself printed;
-7. ``[prefill-long]``: one 4096-token prompt through full-depth bf16
+9. ``[prefill-long]``: one 4096-token prompt through full-depth bf16
    ``LM.prefill`` of qwen2.5-3b, mamba2-1.3b and recurrentgemma-2b
    (``max_len`` 4096): host ms (median of 3 after a warm-up), exact
    launch counts (one flash per attention layer, one ssd_scan per ssd
    layer, one rglru_scan per rglru layer), and for each kernel of the
    prefill its device ms per counted call and its device kernels by
    ``torch.profiler``;
-8. LM serve path: ``repro_torch.launch.serve``'s engine on qwen2.5-3b (36
+10. LM serve path: ``repro_torch.launch.serve``'s engine on qwen2.5-3b (36
    layers), granite-moe-3b-a800m (32), mamba2-1.3b (48) and
    recurrentgemma-2b (26), each at full width and depth (bf16, weights
    from a generator seeded 0), 6 requests, 12 new tokens each, greedy,
@@ -102,12 +126,13 @@ failure:
    and no launch of a kernel off the path; capture ms per graph; decode ms
    per step and tok/s of each mode (median over runs 2-4); then a
    profiler breakdown of a decode step, eager and by replay;
-9. one JSON line of per-kernel numbers, the card line, and last the
+11. one JSON line of per-kernel numbers, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 ``--only`` is a development aid: it runs the named phases of ``kernels``
-(3), ``cnn`` (4), ``lm`` (5), ``lm-bf16`` (6), ``prefill-long`` (7) and
-``serve`` (8), after the card line and the build, and prints neither the
+(3), ``cnn`` (4), ``pipeline`` (5), ``cnn-serve`` (6), ``lm`` (7),
+``lm-bf16`` (8), ``prefill-long`` (9) and ``serve`` (10), after the card
+line and the build, and prints neither the
 JSON line nor the ``ok`` line, so it never stands in for a full run.
 ``--src DIR`` drives the ``repro_torch`` package under DIR instead of this
 checkout's ``src`` (``--only prefill-long --src <parent>/src`` times the
@@ -137,7 +162,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
-PHASES = ("kernels", "cnn", "lm", "lm-bf16", "prefill-long", "serve")
+PHASES = ("kernels", "cnn", "pipeline", "cnn-serve", "lm", "lm-bf16", "prefill-long", "serve")
 CHECKOUT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 
 
@@ -188,12 +213,23 @@ from repro_torch.models import rglru as rglru_mod  # noqa: E402
 from repro_torch.models import ssd as ssd_mod  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
+from repro_torch.obs import SloSpec  # noqa: E402
+from repro_torch.pipeline import PipelinedModel  # noqa: E402
+from repro_torch.serve import ModelServer  # noqa: E402
 from repro_torch.serving import ServeEngine  # noqa: E402
+from repro_torch.targets import register_h100_target  # noqa: E402
 
 DEV = torch.device("cuda")
 NETS = ("MobileNet", "ResNet", "DSCNN", "DAE")
-TARGETS = ("gap9", "diana")
+TARGETS = ("gap9", "diana", "h100")  # h100 registered explicitly in main()
 REQUESTS = 4
+# [pipeline]: benchmarks/pipeline_throughput.py's sweep on the card
+PIPE_TARGETS = ("gap9", "diana", "ne16_octa")
+PIPE_INPUTS, PIPE_DEPTH, PIPE_REPEATS = 12, 3, 5
+# [cnn-serve]: benchmarks/serve_load.py's sweep on the card, h100 added
+SERVE_NETS = ("DAE", "DSCNN")
+SERVE_TARGETS = ("gap9", "ne16_octa", "h100")
+SERVE_N, SERVE_BATCH, SERVE_DEPTH, SERVE_OFFERED_X = 96, 16, 2, 6.0
 KERNELS = ("matmul_requant", "flash_attention", "moe_gmm", "ssd_scan", "rglru_scan")
 # every source built: the five kernels and an empty kernel, the card's launch floor
 SOURCES = KERNELS + ("launch_floor",)
@@ -203,8 +239,11 @@ HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
 BF16_FLOPS_S = 989e12
 FP32_FLOPS_S = 67e12
-# (K, N) of every dense on the main path; all run at M = 1
+# (K, N) of every dense on the main path; all run at M = 1 there, and DAE's
+# five at M = batch rows when requests are served in batches
 MAIN_KN = ((640, 128), (128, 128), (128, 8), (8, 128), (128, 640), (64, 10), (256, 2), (64, 12))
+DAE_KN = MAIN_KN[:5]
+SERVED_M = (2, 16)
 GRID_MKN = ((8, 16, 128), (32, 64, 128), (128, 128, 256), (16, 96, 384), (3, 37, 11), (48, 80, 112))
 # flash attention: tolerance per dtype (tests/test_kernels.py:33), the
 # kernel test grid (B, H, KV, S, D), and qwen2.5-3b's prefill shapes
@@ -263,6 +302,14 @@ LONG_PROMPT = 4096
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
@@ -431,11 +478,45 @@ def phase_build(check_spills: bool = True) -> list[dict]:
     return tc
 
 
+def gemm_row(m: int, k: int, n: int) -> dict:
+    """``matmul_requant``'s times at one (M, K, N), as the lowering calls it
+    (a transposed (N, K) weight, round-half-even, ReLU): in a CUDA graph,
+    launched from Python, the launch floor at its own launch shape
+    (ceil(M N / 8) blocks of 256 threads), the plain version, the library
+    calls and the bound."""
+    a, w, mult, bias = gemm_operands(m, k, n, seed=7, transposed_w=True)
+    af, wf = a.float(), w.float()
+    kw = dict(shift=5, relu=True, rounding="even")
+    row = {
+        "shape": [m, k, n],
+        "ms": graph_ms(lambda: matmul_requant(a, w, mult, bias, **kw)),
+        "launch_floor_ms": graph_ms(launch_floor(-(-m * n // 8), 256)),
+        "eager_ms": eager_ms(lambda: matmul_requant(a, w, mult, bias, **kw)),
+        "plain_ms": graph_ms(lambda: matmul_requant_plain(a, w, mult, bias, **kw)),
+        "library_ms": graph_ms(lambda: library_gemm_requant(af, wf, mult, bias, 5)),
+    }
+    row["bound_ms"], row["bound_by"] = bound(m * k + k * n + 8 * n + m * n, 2 * m * n * k, INT8_OPS_S)
+    return row
+
+
+def print_gemm_rows(title: str, rows: list[dict]) -> None:
+    print(f"[kernels] {title}, ms per call; graph = device time in a CUDA graph, eager = launched from Python; "
+          "floor = an empty kernel at the same launch shape (ceil(M N / 8) blocks of 256 threads) in a CUDA graph")
+    print(f"    {'M':>3s} {'K':>4s} {'N':>4s} {'kernel':>9s} {'floor':>9s} {'kern eager':>10s} {'plain':>9s} "
+          f"{'library':>9s} {'bound':>9s}")
+    for row in rows:
+        m, k, n = row["shape"]
+        print(f"    {m:>3d} {k:>4d} {n:>4d} {row['ms']:>9.5f} {row['launch_floor_ms']:>9.5f} {row['eager_ms']:>10.5f} "
+              f"{row['plain_ms']:>9.5f} {row['library_ms']:>9.5f} {row['bound_ms']:>9.6f}")
+
+
 def phase_gemm_kernel() -> dict:
-    """Bit-exact checks, then times at the CNN path's shapes."""
+    """Bit-exact checks, then times at the CNN path's shapes (M = 1) and at
+    DAE's served shapes (M = 16, one row per request of a 16-slot batch)."""
     worst = 0
     cases = 0
-    shapes = [(1, k, n, True) for k, n in MAIN_KN] + [(m, k, n, False) for m, k, n in GRID_MKN]
+    shapes = ([(1, k, n, True) for k, n in MAIN_KN] + [(m, k, n, True) for m in SERVED_M for k, n in DAE_KN]
+              + [(m, k, n, False) for m, k, n in GRID_MKN])
     for i, (m, k, n, tw) in enumerate(shapes):
         a, w, mult, bias = gemm_operands(m, k, n, seed=i, transposed_w=tw)
         for rounding in ("floor", "even"):
@@ -453,34 +534,16 @@ def phase_gemm_kernel() -> dict:
                     worst = max(worst, err)
                     cases += 1
     print(f"[kernels] matmul_requant bit-exact vs matmul_requant_plain on {cases} cases "
-          f"({len(shapes)} shapes x 2 roundings x relu on/off x 4 shifts)")
-
-    print("[kernels] main-path shapes (M=1), ms per call; graph = device time in a CUDA graph, "
-          "eager = launched from Python; floor = an empty kernel at the same launch shape "
-          "(ceil(N/8) blocks of 256 threads) in a CUDA graph")
-    print(f"    {'K':>4s} {'N':>4s} {'kernel':>9s} {'floor':>9s} {'kern eager':>10s} {'plain':>9s} "
-          f"{'library':>9s} {'bound':>9s}")
-    rows = []
-    for k, n in MAIN_KN:
-        a, w, mult, bias = gemm_operands(1, k, n, seed=7, transposed_w=True)
-        af, wf = a.float(), w.float()
-        kw = dict(shift=5, relu=True, rounding="even")
-        row = {
-            "shape": [1, k, n],
-            "ms": graph_ms(lambda: matmul_requant(a, w, mult, bias, **kw)),
-            "launch_floor_ms": graph_ms(launch_floor(-(-n // 8), 256)),
-            "eager_ms": eager_ms(lambda: matmul_requant(a, w, mult, bias, **kw)),
-            "plain_ms": graph_ms(lambda: matmul_requant_plain(a, w, mult, bias, **kw)),
-            "library_ms": graph_ms(lambda: library_gemm_requant(af, wf, mult, bias, 5)),
-        }
-        row["bound_ms"], row["bound_by"] = bound(1 * k + k * n + 8 * n + 1 * n, 2 * 1 * n * k, INT8_OPS_S)
-        rows.append(row)
-        print(f"    {k:>4d} {n:>4d} {row['ms']:>9.5f} {row['launch_floor_ms']:>9.5f} {row['eager_ms']:>10.5f} "
-              f"{row['plain_ms']:>9.5f} {row['library_ms']:>9.5f} {row['bound_ms']:>9.6f}")
+          f"({len(shapes)} shapes, M = 1 and M in {SERVED_M} at DAE's (K, N) among them, x 2 roundings "
+          "x relu on/off x 4 shifts)")
+    rows = [gemm_row(1, k, n) for k, n in MAIN_KN]
+    print_gemm_rows("main-path shapes (M=1)", rows)
+    served = [gemm_row(16, k, n) for k, n in DAE_KN]
+    print_gemm_rows("served shapes (M=16, DAE's (K, N))", served)
     one = graph_ms(launch_floor(1, 32))
     print(f"[kernels] launch floor: an empty sm_90a kernel of 1 block x 32 threads in a CUDA graph, "
           f"{one:.5f} ms per launch")
-    return {"max_abs_err": worst, "rows": rows, "launch_floor_ms": one}
+    return {"max_abs_err": worst, "rows": rows, "served_rows": served, "launch_floor_ms": one}
 
 
 def check_outputs(where: str, outs: list[dict], refs: list[dict]) -> None:
@@ -509,9 +572,25 @@ def host_ms(fn, runs: int = 5) -> tuple[float, list[float]]:
     return float(np.median(ms)), ms
 
 
+def print_h100_timings(cm, dev_params: dict, x: dict) -> None:
+    """One timed run on the card's own target: each segment's predicted
+    cycles against its CUDA-event time in cycles of the target's clock."""
+    cm.run(dev_params, x, timed=True)
+    f = cm.target.fallback.frequency_hz
+    print(f"[cnn] {cm.graph.name} x h100, per segment: predicted cycles against measured (CUDA events around "
+          f"the segment's launches, x {f / 1e9:.2f} GHz), measured / predicted")
+    for tm in cm.last_timings:
+        ratio = tm.measured_cycles / tm.predicted_cycles if tm.predicted_cycles > 0 else float("nan")
+        print(f"    {tm.name:24.24s} {tm.module:10s} {tm.route:11s} predicted {tm.predicted_cycles:>9.0f} "
+              f"measured {tm.measured_cycles:>10.0f} ({tm.measured_us:8.2f} us) x{ratio:.1f}")
+    total = sum(tm.measured_cycles for tm in cm.last_timings)
+    print(f"    total: predicted {cm.predicted_cycles():.0f} cycles, measured {total:.0f}")
+
+
 def phase_cnn_path() -> dict:
-    """4 nets x 2 targets through dispatch -> lower -> run on the card, then
-    through the whole-graph AOT executor in both memory modes."""
+    """4 nets x 3 targets (gap9, diana and the card's own h100) through
+    dispatch -> lower -> run on the card, then through the whole-graph AOT
+    executor in both memory modes."""
     nets = mlperf_tiny_networks()
     cells = []
     for net in NETS:
@@ -558,7 +637,7 @@ def phase_cnn_path() -> dict:
                     f"{net}x{tgt}: {launches} GEMM kernel launches, expected "
                     f"{gemm_segments} segments x {REQUESTS} requests"
                 )
-            cell = {"net": net, "target": tgt, "launches": launches}
+            cell = {"net": net, "target": tgt, "launches": launches, "bands": bands}
             # the AOT path in each memory mode: warm-up (capture, uncounted),
             # then the requests, counts from 0 just before, read just after
             aot_line = []
@@ -597,11 +676,172 @@ def phase_cnn_path() -> dict:
             if net == "DSCNN" and tgt == "gap9":
                 cm.run(dev_params, requests[0], timed=True)
                 print(cm.report())
+            if tgt == "h100":
+                print_h100_timings(cm, dev_params, requests[0])
+    bands_of = {(c["net"], c["target"]): c["bands"] for c in cells}
+    print("[cnn] conv bands per request (F.conv2d calls), h100 against gap9: "
+          + "; ".join(f"{net} {bands_of[net, 'h100']}/{bands_of[net, 'gap9']}" for net in NETS))
     print("[cnn] ms per request, eager / AOT xla / AOT arena: "
           + "; ".join(f"{c['net']}x{c['target']} {c['eager_ms']:.3f} / {c['aot_xla_ms']:.3f} / {c['aot_arena_ms']:.3f}"
                       for c in cells))
     return {"cells": cells, "launches": sum(c["launches"] for c in cells),
             "launches_aot": sum(c["launches_aot_xla"] + c["launches_aot_arena"] for c in cells)}
+
+
+def request_stream(g, n: int, seed: int = 0) -> list[dict]:
+    """``n`` requests of int8-valued inputs from one generator, as the
+    benchmarks draw them."""
+    rng = np.random.default_rng(seed)
+    return [{k: rng.integers(-128, 128, s).astype(np.float32) for k, s in g.inputs.items()} for _ in range(n)]
+
+
+def check_same(where: str, outs: list[dict], refs: list[dict]) -> None:
+    """Every output on the card and bit-exact with ``CompiledModel.run``'s."""
+    if len(outs) != len(refs):
+        raise AssertionError(f"{where}: {len(outs)} outputs for {len(refs)} inputs")
+    for i, (out, ref) in enumerate(zip(outs, refs)):
+        for name, want in ref.items():
+            got = out[name]
+            if got.device.type != "cuda" or tuple(got.shape) != tuple(want.shape) or not torch.equal(got, want):
+                raise AssertionError(f"{where} input {i}: {name} differs from CompiledModel.run")
+
+
+def phase_pipeline() -> dict:
+    """benchmarks/pipeline_throughput.py on the card: 4 nets x {gap9, diana,
+    ne16_octa}, 12 inputs through ``PipelinedModel.run_stream`` (one CUDA
+    stream per module lane, 3 inputs in flight), per-segment and with each
+    lane chain a captured graph (aot), each streamed run repeated and held
+    bit-exact with ``CompiledModel.run`` with exact GEMM launches; µs per
+    input sequential against streamed (host clock to the last output,
+    median of the repeats) beside the schedule's predicted speedups."""
+    nets = mlperf_tiny_networks()
+    cells = []
+    launches = 0
+    for net in NETS:
+        g = nets[net]
+        params = init_graph_params(g)
+        xs = request_stream(g, PIPE_INPUTS)
+        cpu_first = execute_graph(g, params_to_torch(params, "cpu"), xs[0], device="cpu")
+        for tgt in PIPE_TARGETS:
+            cm = lower(dispatch(g, tgt, budget=300))
+            dev_params = params_to_torch(params, cm.device)
+            gemms = cm.routes().get("pallas_gemm", 0)
+            refs = [cm.run(dev_params, x) for x in xs]
+            check_outputs(f"[pipeline] {net}x{tgt} sequential", refs[:1], [cpu_first])
+            seq_ms, _ = host_ms(lambda: [cm.run(dev_params, x) for x in xs], runs=PIPE_REPEATS)
+            ps = cm.pipeline_schedule()
+            busy = ps.module_busy()
+            cell = {"net": net, "target": tgt, "lanes": len(ps.lanes()), "seq_us": seq_ms * 1e3 / PIPE_INPUTS,
+                    "predicted_speedup": ps.speedup(),
+                    "predicted_stream": ps.sequential_cycles() / max(busy.values())}
+            for aot in (False, True):
+                where = f"[pipeline] {net}x{tgt} aot={aot}"
+                pm = PipelinedModel(cm, stream_depth=PIPE_DEPTH, aot=aot)
+                check_same(where + " warm-up", pm.run_stream(dev_params, xs), refs)  # captures (aot)
+                times = []
+                for _ in range(PIPE_REPEATS):
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    outs = pm.run_stream(dev_params, xs)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    counts = read_counts()
+                    check_counts(where, counts, {**dict.fromkeys(counts, 0), "matmul_requant": gemms * PIPE_INPUTS})
+                    check_same(where, outs, refs)
+                    launches += counts["matmul_requant"]
+                cell[f"stream_us_aot_{aot}"] = float(np.median(times)) * 1e6 / PIPE_INPUTS
+                del pm
+            cells.append(cell)
+            print(f"[pipeline] {net:9s} x {tgt:9s}: {cell['lanes']} lanes, bit-exact x{PIPE_REPEATS} streamed runs "
+                  f"per mode, GEMM launches {gemms} x {PIPE_INPUTS} per run; us per input sequential "
+                  f"{cell['seq_us']:.1f}, streamed {cell['stream_us_aot_False']:.1f} (segments) / "
+                  f"{cell['stream_us_aot_True']:.1f} (captured chains); measured sequential/streamed "
+                  f"x{cell['seq_us'] / cell['stream_us_aot_False']:.2f} / x{cell['seq_us'] / cell['stream_us_aot_True']:.2f}; "
+                  f"predicted: predicted_speedup() x{cell['predicted_speedup']:.2f}, stream bound (sequential "
+                  f"cycles / busiest module) x{cell['predicted_stream']:.2f}")
+    return {"cells": cells, "launches": launches}
+
+
+def slo_specs() -> list:
+    """benchmarks/serve_load.py's objectives, generous by construction: a
+    normal sweep must verdict ok."""
+    return [
+        SloSpec("p99_budget", "latency_p99_us", 300e6, description="tail budget"),
+        SloSpec("rejections", "rejection_rate", 0.25, description="shed bound"),
+    ]
+
+
+def serve_round(cm, dev_params: dict, xs: list[dict], refs: list[dict], rate_rps: float, mode: str) -> dict:
+    """One open-loop Poisson round (seed 1) at ``rate_rps`` through a
+    16-slot replica, every served row held against ``refs``; launches
+    counted from 0 after the warm-up."""
+    gemms = cm.routes().get("pallas_gemm", 0)
+    rng = np.random.default_rng(1)
+    with ModelServer(cm, dev_params, batch_slots=SERVE_BATCH, stream_depth=SERVE_DEPTH, queue_capacity=len(xs),
+                     mode=mode, slo=slo_specs()) as srv:
+        srv.warmup(xs[0])  # the batch graph captured before load arrives
+        torch.cuda.synchronize()
+        reset_counts()
+        arrivals = np.cumsum(rng.exponential(1.0 / rate_rps, size=len(xs)))
+        t0 = time.perf_counter()
+        handles = []
+        for x, due in zip(xs, arrivals):
+            delay = t0 + due - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            handles.append(srv.submit(x))
+        outs = [h.result(timeout=300) for h in handles]
+        torch.cuda.synchronize()
+        span_s = time.perf_counter() - t0
+    stats = srv.stats()
+    where = f"[cnn-serve] {cm.graph.name}x{cm.target.name} {mode}"
+    counts = read_counts()
+    check_counts(where, counts, {**dict.fromkeys(counts, 0), "matmul_requant": gemms * stats["batches"]})
+    check_same(where, outs, refs)
+    if stats["completed"] != len(xs) or stats["rejected"] or not stats["drained"]:
+        raise AssertionError(f"{where}: stats {stats}")
+    return {"sustained_rps": len(xs) / span_s, "p50_us": stats["latency_us"]["p50"],
+            "p99_us": stats["latency_us"]["p99"], "batches": stats["batches"], "rounds": stats["rounds"],
+            "launches": counts["matmul_requant"], "slo_breached": stats["slo"]["breached"],
+            "capture_ms": {e["batch"]: e["compile_us"] / 1e3 for e in stats["entries"]}}
+
+
+def phase_cnn_serve() -> dict:
+    """benchmarks/serve_load.py on the card: DAE and DS-CNN x {gap9,
+    ne16_octa, h100}, 96 requests offered open-loop at 6x the measured
+    sequential rate to a replica of 16 slots and 2 batches in flight, in
+    both modes; every served row bit-exact with the sequential run, which
+    is bit-exact with the CPU interpreter."""
+    nets = mlperf_tiny_networks()
+    cells = []
+    for net in SERVE_NETS:
+        g = nets[net]
+        params = init_graph_params(g)
+        xs = request_stream(g, SERVE_N)
+        cpu_params = params_to_torch(params, "cpu")
+        cpu_refs = [execute_graph(g, cpu_params, x, device="cpu") for x in xs]
+        for tgt in SERVE_TARGETS:
+            cm = lower(dispatch(g, tgt, budget=300))
+            dev_params = params_to_torch(params, cm.device)
+            refs = [cm.run(dev_params, x) for x in xs]
+            check_outputs(f"[cnn-serve] {net}x{tgt} sequential", refs, cpu_refs)
+            seq_ms, _ = host_ms(lambda: [cm.run(dev_params, x) for x in xs], runs=3)
+            seq_rps = SERVE_N / (seq_ms / 1e3)
+            cell = {"net": net, "target": tgt, "seq_rps": seq_rps, "gemm_segments": cm.routes().get("pallas_gemm", 0)}
+            for mode in ("aot", "pipeline"):
+                r = serve_round(cm, dev_params, xs, refs, SERVE_OFFERED_X * seq_rps, mode)
+                cell[mode] = r
+                print(f"[cnn-serve] {net:5s} x {tgt:9s} {mode:8s}: bit-exact x{SERVE_N} with CompiledModel.run and "
+                      f"the CPU interpreter (batch {SERVE_BATCH}, padded), {r['batches']} batches in {r['rounds']} "
+                      f"rounds, GEMM launches {r['launches']} = {cell['gemm_segments']} x {r['batches']}; "
+                      f"rps sequential {seq_rps:.1f}, offered {SERVE_OFFERED_X * seq_rps:.1f}, sustained "
+                      f"{r['sustained_rps']:.1f} (x{r['sustained_rps'] / seq_rps:.2f}); latency us p50 "
+                      f"{r['p50_us']:.0f} p99 {r['p99_us']:.0f}; capture ms per batch shape {r['capture_ms']}; "
+                      f"SLO {'breached' if r['slo_breached'] else 'ok'}")
+                if r["slo_breached"]:
+                    raise AssertionError(f"[cnn-serve] {net}x{tgt} {mode}: the generous SLOs breached")
+            cells.append(cell)
+    return {"cells": cells, "launches": sum(c[m]["launches"] for c in cells for m in ("aot", "pipeline"))}
 
 
 def off_by_one(x: torch.Tensor) -> torch.Tensor:
@@ -1740,6 +1980,8 @@ def main() -> None:
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
     print(f"[card] driving repro_torch from {os.path.abspath(ARGS.src)}; phases {', '.join(ARGS.only)}")
     resolve_device("cuda")  # IEEE fp32 matmuls on the card (TF32 off) for every comparison
+    register_h100_target()  # the card's own target, on explicit request only
+    print(f"[card] largest SM clock (nvidia-smi clocks.max.sm): {max_sm_clock()}")
 
     phase_build(check_spills=os.path.abspath(ARGS.src) == CHECKOUT_SRC)
     only = set(ARGS.only)
@@ -1757,6 +1999,10 @@ def main() -> None:
         rg_flash_rows = phase_rg_flash_timing()
     if "cnn" in only:
         cnn = phase_cnn_path()
+    if "pipeline" in only:
+        pipe = phase_pipeline()
+    if "cnn-serve" in only:
+        cnn_serve = phase_cnn_serve()
     draw = lambda lm: draw_rglru_decays(lm, seed=1)  # noqa: E731
     if "lm" in only:
         for arch in (LM_ARCH, MOE_ARCH, SSD_ARCH):
@@ -1785,7 +2031,10 @@ def main() -> None:
     big = max(gemm["rows"], key=lambda r: r["shape"][1] * r["shape"][2])
     entries = [
         kernel_entry("matmul_requant", cnn["launches"], gemm, big, launch_floor_ms=big["launch_floor_ms"],
-                     launch_floor_1x32_ms=gemm["launch_floor_ms"], launches_aot=cnn["launches_aot"]),
+                     launch_floor_1x32_ms=gemm["launch_floor_ms"], launches_aot=cnn["launches_aot"],
+                     launches_pipeline=pipe["launches"], launches_cnn_serve=cnn_serve["launches"],
+                     served_shapes=[{k: r[k] for k in ("shape", "ms", "launch_floor_ms", "plain_ms", "library_ms",
+                                                       "bound_ms", "bound_by")} for r in gemm["served_rows"]]),
         # the serving engine's prefill shape first
         kernel_entry("flash_attention", served[LM_ARCH]["launches"]["flash_attention"], flash, flash_rows[0],
                      max_abs_err_f32=flash["max_abs_err_f32"], prefill_shapes=shapes(flash_rows),

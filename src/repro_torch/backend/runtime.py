@@ -369,11 +369,60 @@ class CompiledModel:
             self._aot = compile_aot(self, **kw)
         return self._aot
 
+    def pipeline_schedule(self):
+        """The concurrent multi-module schedule of this model's mapping
+        (:func:`repro_torch.pipeline.schedule.schedule_pipeline`) — per-segment
+        start/finish on each module's clock and the predicted makespan.
+        Pure cost-model arithmetic, computed on demand."""
+        from repro_torch.pipeline.schedule import schedule_pipeline  # no cycle: late
+
+        return schedule_pipeline(self.mapped)
+
+    def predicted_makespan(self) -> float:
+        """End-to-end cycles when modules run concurrently; equals
+        ``predicted_cycles()`` exactly on single-module mappings and is
+        never larger."""
+        return self.pipeline_schedule().makespan
+
+    def serve_dict(self, stream_requests: int = 4) -> dict:
+        """Request-level serving predictions (:mod:`repro_torch.serve`).
+
+        Steady-state throughput is bounded by the busiest module, not by
+        end-to-end latency: once the pipeline fills, a new request
+        completes every *initiation interval* = max per-module busy
+        cycles.  ``stream`` carries the unit-weight
+        :func:`~repro_torch.pipeline.schedule.schedule_stream` numbers for
+        ``stream_requests`` concurrent requests — the quantity
+        ``dispatch(..., objective="wct")`` re-ranks segmentations by.
+        ``engine`` is the live :class:`~repro_torch.serve.engine.ModelServer`
+        stats when a replica has served this model (else ``None``).
+        """
+        from repro_torch.pipeline.schedule import schedule_stream  # no cycle: late
+
+        ps = self.pipeline_schedule()
+        busy = ps.module_busy()
+        ii = max(busy.values()) if busy else ps.makespan
+        ss = schedule_stream(self.mapped, (1.0,) * max(1, stream_requests))
+        f = self.target.fallback.frequency_hz
+        return {
+            "initiation_interval_cycles": ii,
+            "bottleneck_module": max(busy, key=busy.get) if busy else None,
+            "predicted_requests_per_s": (f / ii) if ii > 0 else 0.0,
+            "predicted_stream_speedup": (ps.makespan / ii) if ii > 0 else 1.0,
+            "stream": {
+                "requests": int(max(1, stream_requests)),
+                "makespan_cycles": ss.makespan,
+                "weighted_completion_cycles": ss.attrs["weighted_completion"],
+                "request_order": list(ss.attrs["request_order"]),
+            },
+            "engine": self.attrs.get("serve"),
+        }
+
     def report_dict(self) -> dict:
         """Machine-readable companion of :meth:`report`: predicted cycles,
         memory plan, and any measured timings in one JSON-safe payload.
-        The reference's keys, less ``pipeline`` and ``serve`` (not ported
-        yet), plus ``device``; ``aot`` once :meth:`to_aot` has built one."""
+        The reference's keys plus ``device``; ``aot`` once :meth:`to_aot`
+        has built one."""
         g, t = self.graph, self.target
         measured = {tm.name: tm for tm in self._last_timings}
         segments = []
@@ -407,6 +456,13 @@ class CompiledModel:
             "predicted_latency_s": self.predicted_latency_s(),
             "cycles_by_module": self.cycles_by_module(),
             "memory_plan": self.memory_plan.to_dict(),
+            # Gantt-style concurrent schedule (repro_torch.pipeline):
+            # per-module lanes with start/finish plus the predicted makespan
+            "pipeline": self.pipeline_schedule().timeline_dict(),
+            # request-level serving: steady-state initiation interval +
+            # stream WCT predictions, and live replica stats once a
+            # repro_torch.serve.ModelServer has served this model
+            "serve": self.serve_dict(),
             "obs": {
                 "metrics": obs.metrics_dict(),
                 "drift": obs.drift_dict(t.name),

@@ -6,7 +6,8 @@ reference suite's ``budget=300``; inputs are the conformance harness's
 as numpy to both packages.  :func:`perturb_rglru` draws the RG-LRU decay
 parameters of an LM tree so that the recurrence carries across time.
 :class:`NoHostSync` fails on the CPU on what would break a CUDA graph's
-capture on the card.
+capture on the card.  :func:`one_torch_thread`, imported by a test module,
+runs that module on one intra-op thread.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -70,6 +72,17 @@ def io(net: str):
 def ref_outputs(net: str) -> dict:
     params, x = io(net)
     return {k: np.asarray(v) for k, v in repro.cnn.execute_graph(ref_graph(net), params, x).items()}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's tests on one intra-op thread: batch-1 CNN ops gain
+    nothing from more, and the suite's workers share the machine's cores
+    (imported by a test module, it applies to that module only)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def segment_rows(mapped) -> list[tuple]:

@@ -414,3 +414,116 @@ def test_recurrentgemma_lm_on_card(cuda):
             torch.testing.assert_close(lg.cpu(), want, atol=1e-3, rtol=1e-3)
     assert (rglru_scan.launches - before[0], flash_attention.launches - before[1]) == (2, 1)
     assert cache["stack0"]["b2_local_attn"]["pos"][0].tolist() == [16, 17, 18] + list(range(3, 16))
+
+
+# ---------------------------------------------------------------------------
+# PipelinedModel (one stream per module lane) and the request server
+# ---------------------------------------------------------------------------
+
+
+def _cnn_on_card(net: str, tgt: str, n: int):
+    g = mlperf_tiny_networks()[net]
+    params = init_graph_params(g)
+    rng = np.random.default_rng(3)
+    xs = [{k: rng.integers(-128, 128, s).astype(np.float32) for k, s in g.inputs.items()} for _ in range(n)]
+    cm = lower(dispatch(g, tgt, budget=300))
+    dev_params = params_to_torch(params, cm.device)
+    refs = [cm.run(dev_params, x) for x in xs]
+    return cm, dev_params, xs, refs
+
+
+def _same_rows(outs, refs):
+    assert len(outs) == len(refs)
+    for out, ref in zip(outs, refs):
+        for k in ref:
+            assert out[k].device.type == "cuda"
+            assert torch.equal(out[k], ref[k]), k
+
+
+@pytest.mark.parametrize("aot", [False, True])
+@pytest.mark.parametrize("net,tgt", [("DSCNN", "gap9"), ("ResNet", "diana")])
+def test_pipelined_and_streamed_runs_bit_exact_over_repeats(cuda, net, tgt, aot):
+    """Cross-stream lifetimes show as a wrong row only under run_stream:
+    20 streamed runs of 6 inputs, 3 in flight, each bit-exact."""
+    from repro_torch.pipeline import PipelinedModel
+
+    cm, dev_params, xs, refs = _cnn_on_card(net, tgt, 6)
+    pm = PipelinedModel(cm, stream_depth=3, aot=aot)
+    assert len(pm.schedule.lanes()) >= 2  # cross-lane events on the path
+    _same_rows([pm.run(dev_params, xs[0])], refs[:1])
+    for _ in range(20):
+        _same_rows(pm.run_stream(dev_params, xs), refs)
+
+
+def test_chain_replays_count_the_captured_launches(cuda):
+    """N inputs replay every lane chain N times: N x the GEMM launches
+    the chains captured, and nothing for the capture itself."""
+    from repro_torch.pipeline import PipelinedModel
+
+    cm, dev_params, xs, refs = _cnn_on_card("DAE", "gap9", 7)
+    gemms = cm.routes()["pallas_gemm"]
+    pm = PipelinedModel(cm, stream_depth=2, aot=True)
+    before = matmul_requant.launches
+    _same_rows(pm.run_stream(dev_params, xs), refs)
+    torch.cuda.synchronize()
+    assert matmul_requant.launches - before == gemms * len(xs)
+
+
+def test_one_captured_graph_per_batch_shape_on_card(cuda):
+    from repro_torch.serve import BatchedModel
+
+    cm, dev_params, xs, refs = _cnn_on_card("DSCNN", "gap9", 6)
+    bm = BatchedModel(cm)
+    _same_rows(bm.run_batch(dev_params, xs[:3]), refs[:3])
+    _same_rows(bm.run_batch(dev_params, xs[3:]), refs[3:])
+    assert len(bm.entry_stats()) == 1
+    _same_rows(bm.run_batch(dev_params, xs[:2]), refs[:2])
+    stats = bm.entry_stats()
+    assert sorted(r["batch"] for r in stats) == [2, 3]
+    assert all(r["compile_us"] > 0.0 for r in stats)  # a capture on the card
+
+
+@pytest.mark.parametrize("mode", ["aot", "pipeline"])
+def test_sixteen_slot_server_bit_exact_on_card(cuda, mode):
+    """40 DAE requests through 16 slots (rows = the GEMM's M): every row
+    bit-exact with CompiledModel.run, GEMM launches = segments x batches."""
+    from repro_torch.serve import ModelServer
+
+    cm, dev_params, xs, refs = _cnn_on_card("DAE", "gap9", 40)
+    with ModelServer(cm, dev_params, batch_slots=16, stream_depth=2, mode=mode) as srv:
+        srv.warmup(xs[0])
+        torch.cuda.synchronize()
+        before = matmul_requant.launches
+        outs = [h.result(timeout=120) for h in [srv.submit(x) for x in xs]]
+    torch.cuda.synchronize()
+    _same_rows(outs, refs)
+    stats = srv.stats()
+    assert stats["completed"] == len(xs) and stats["drained"]
+    assert matmul_requant.launches - before == cm.routes()["pallas_gemm"] * stats["batches"]
+    cm.attrs.pop("serve")
+
+
+def test_pipeline_spans_on_card_are_timed_by_cuda_events(cuda):
+    """Traced, every step of every input gets a ``pipeline:<module>`` span
+    from its CUDA event pair, written after the input completed; the
+    outputs stay bit-exact."""
+    from repro_torch import obs
+    from repro_torch.pipeline import PipelinedModel
+
+    cm, dev_params, xs, refs = _cnn_on_card("DSCNN", "gap9", 3)
+    pm = PipelinedModel(cm, stream_depth=2)
+    tr = obs.get_tracer()
+    was = tr.enabled
+    tr.enabled = True
+    tr.clear()
+    try:
+        _same_rows(pm.run_stream(dev_params, xs), refs)
+        events = tr.chrome_trace()["traceEvents"]
+    finally:
+        tr.enabled = was
+        tr.clear()
+    spans = {e["name"]: e for e in events if e.get("ph") == "X" and e.get("cat") == "runtime"}
+    for k in range(len(xs)):
+        for ls in cm.segments:
+            span = spans[f"{ls.output_name}@{k}"]
+            assert span["dur"] >= 0.0 and span["args"]["input"] == k

@@ -37,14 +37,17 @@ assert {"repro_torch.backend.lower", "repro_torch.kernels.matmul_requant",
         "repro_torch.calibrate.profile", "repro_torch.kernels.moe_gmm",
         "repro_torch.kernels.ssd_scan", "repro_torch.models.moe",
         "repro_torch.models.ssd", "repro_torch.models.rglru",
-        "repro_torch.kernels.rglru_scan"} <= set(names)
+        "repro_torch.kernels.rglru_scan", "repro_torch.pipeline.runtime",
+        "repro_torch.serve.queue", "repro_torch.serve.batching", "repro_torch.serve.engine",
+        "repro_torch.targets.h100", "repro_torch.targets.tpu_v5e"} <= set(names)
 """
 
-# the slice-2 entry points, each imported alone in a fresh interpreter
+# the entry points, imported in a fresh interpreter
 _ENTRY_PROBE = """
 import sys
 import repro_torch.models, repro_torch.serving, repro_torch.launch.serve
 import repro_torch.configs, repro_torch.pipeline, repro_torch.calibrate
+import repro_torch.serve, repro_torch.targets.h100
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
 """
