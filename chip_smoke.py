@@ -1,7 +1,7 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py                       # every phase, as below
-    python3 chip_smoke.py --only kernels,prefill-long [--src DIR]
+    python3 chip_smoke.py --only gemm,cnn [--src DIR]
 
 Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
 ``nvcc``; run from the root of a checkout.  Phases, each raising on
@@ -12,13 +12,27 @@ failure:
    launch floor), compiled by ``nvcc`` from
    ``src/repro_torch/kernels/csrc``, one compiler per source, all started
    together (build seconds, ``-Xptxas -v``), and no spill store in any
-   bf16 tensor-core instantiation or scan kernel (registers and spills
-   printed);
-3. kernels, each on the card against its plain PyTorch version:
-   ``matmul_requant`` bit-exact (tolerance 0: integer arithmetic) on the
-   CNN path's shapes, the test grid and ragged shapes, both roundings,
-   ReLU on and off; ``flash_attention`` within 2e-5 (f32) and 2e-2 (bf16)
-   on the kernel test grid (causal and not), Sq != Sk with ``q_offset``,
+   tensor-core instantiation (bf16 flash and ``moe_gmm``, the int8 GEMM's
+   four) or scan kernel (registers and spills printed);
+3. ``gemm``: both entries of the int8 GEMM on the card against their
+   plain versions, bit-exact (tolerance 0: integer arithmetic):
+   ``matmul_requant`` on the CNN path's shapes, the test grid and ragged
+   shapes (K past one block's 1024 staged columns among them), both
+   roundings, ReLU on and off; the segment entry ``matmul_requant_f32``
+   on the same shapes as drawn, with A one float off 16 bytes (an arena
+   view), fractional operands inside int8 range, no bias, a bias beyond
+   2^24 and A with column stride M; then both entries' times at M = 1 and at
+   DAE's served M = 16 (kernel, launch floor at the kernel's own launch
+   shape, launched from Python, plain, library, bound, and the time
+   before the redesign as ``before``); the data behind the kernel's rule (the GEMV branch up
+   to 512 blocks, the tensor cores beyond): both entries at M = 1, at
+   DAE's M = 16 and across the knee with each branch forced, bit-exact
+   and timed beside its own launch floor; and
+   DAE's GEMM segments on h100 as the lowering runs them (``LoweredSegment.fn`` at M = 1 and 16): device ms per call in a
+   CUDA graph and the device kernels of one call; ``kernels``: the LM
+   kernels, each on the card against its plain PyTorch version:
+   ``flash_attention`` within 2e-5 (f32) and 2e-2 (bf16) on the kernel
+   test grid (causal and not), Sq != Sk with ``q_offset``,
    sliding windows, ragged lengths, the serving shapes, bf16 at D in
    {24, 80, 256} with Sq, Sk in {1, 63, 65, 129}, views whose rows start
    one element off 16 bytes, and rows with no valid key (negative
@@ -32,11 +46,7 @@ failure:
    within 1e-4 of its plain version and of the sequential oracle on the
    kernel test grid, ragged T and W, strided and bf16 operands and
    recurrentgemma-2b's shapes (T on each side of one 64-step chunk, and
-   (1, 4096), (1, 4097)); ``matmul_requant`` also at M in {2, 16} on
-   DAE's five (K, N), the rows of a served batch; then times of each at its
-   path's shapes (``matmul_requant`` at M = 1 and at DAE's served M = 16,
-   beside the launch floor: an empty kernel at its launch shape, and at 1
-   block x 32 threads, in a CUDA graph; flash
+   (1, 4096), (1, 4097)); then times of each at its path's shapes (flash
    also at recurrentgemma-2b's local-attention shape) beside the plain
    version, one PyTorch library call where there is one, the bound, and,
    printed only, the time the same kernel took before its redesign
@@ -53,8 +63,9 @@ failure:
    the whole-graph AOT executor (``compile_aot``, one CUDA graph) in both
    memory modes, ``xla`` and ``arena``: bit-exact with
    ``CompiledModel.run`` and the interpreter, a rerun of the first request
-   exact (the arena reused), the same GEMM launch count under replay; and
-   ms per request eager / AOT xla / AOT arena (host clock to
+   exact (the arena reused), the same GEMM launch count under replay; for
+   DAE and DS-CNN on gap9 and h100 the device kernels of one AOT ``xla``
+   run by name, with count and µs (profiler); and ms per request eager / AOT xla / AOT arena (host clock to
    ``torch.cuda.synchronize()``, median of 5 after a warm-up); conv
    bands per request on h100 beside gap9's; on h100, one timed run per
    net: each segment's predicted cycles against its CUDA-event time in
@@ -75,8 +86,9 @@ failure:
    served row bit-exact with the sequential run, itself bit-exact with
    the CPU interpreter; GEMM launches = GEMM segments x batches; every
    request completed, none rejected; sequential and sustained requests
-   per second, p50/p99 latency, capture ms per batch shape and the SLO
-   verdict (which must be ok);
+   per second, p50/p99 latency, capture ms per batch shape, the SLO
+   verdict (which must be ok) and the serving thread's host ms per batch
+   by step (launch, wait on the batch's event, resolve, the rest);
 7. LM parity: qwen2.5-3b, granite-moe-3b-a800m and mamba2-1.3b at full
    width, 2 layers, float32, a 16-token prefill, and recurrentgemma-2b at
    full width, 3 layers (rglru, rglru, local_attn), float32, a 2048-token
@@ -129,14 +141,15 @@ failure:
 11. one JSON line of per-kernel numbers, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
-``--only`` is a development aid: it runs the named phases of ``kernels``
-(3), ``cnn`` (4), ``pipeline`` (5), ``cnn-serve`` (6), ``lm`` (7),
+``--only`` is a development aid: it runs the named phases of ``gemm``
+and ``kernels`` (3), ``cnn`` (4), ``pipeline`` (5), ``cnn-serve`` (6), ``lm`` (7),
 ``lm-bf16`` (8), ``prefill-long`` (9) and ``serve`` (10), after the card
 line and the build, and prints neither the
 JSON line nor the ``ok`` line, so it never stands in for a full run.
 ``--src DIR`` drives the ``repro_torch`` package under DIR instead of this
-checkout's ``src`` (``--only prefill-long --src <parent>/src`` times the
-kernels of another commit, unpacked under DIR, in the same call).
+checkout's ``src`` (``--only gemm,cnn --src <parent>/src`` times the
+kernels and segments of another commit, unpacked under DIR, in the same
+call; a tree without the segment entry skips its checks and tables).
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout.  Imports nothing of JAX or of the reference package ``repro``.
@@ -149,6 +162,7 @@ import contextlib
 import copy
 import ctypes
 import gc
+import importlib
 import json
 import os
 import re
@@ -162,7 +176,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
-PHASES = ("kernels", "cnn", "pipeline", "cnn-serve", "lm", "lm-bf16", "prefill-long", "serve")
+PHASES = ("gemm", "kernels", "cnn", "pipeline", "cnn-serve", "lm", "lm-bf16", "prefill-long", "serve")
 CHECKOUT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 
 
@@ -220,9 +234,15 @@ from repro_torch.serving import ServeEngine  # noqa: E402
 from repro_torch.targets import register_h100_target  # noqa: E402
 
 DEV = torch.device("cuda")
+# the GEMM's module; its segment entry exists from the redesign on (None
+# only for an older tree driven with --src)
+MR = importlib.import_module("repro_torch.kernels.matmul_requant")
+SEGMENT = getattr(MR, "matmul_requant_f32", None)
 NETS = ("MobileNet", "ResNet", "DSCNN", "DAE")
 TARGETS = ("gap9", "diana", "h100")  # h100 registered explicitly in main()
 REQUESTS = 4
+# the cells whose AOT replay is broken down into its device kernels
+BREAKDOWN_CELLS = {(net, tgt) for net in ("DAE", "DSCNN") for tgt in ("gap9", "h100")}
 # [pipeline]: benchmarks/pipeline_throughput.py's sweep on the card
 PIPE_TARGETS = ("gap9", "diana", "ne16_octa")
 PIPE_INPUTS, PIPE_DEPTH, PIPE_REPEATS = 12, 3, 5
@@ -244,7 +264,14 @@ FP32_FLOPS_S = 67e12
 MAIN_KN = ((640, 128), (128, 128), (128, 8), (8, 128), (128, 640), (64, 10), (256, 2), (64, 12))
 DAE_KN = MAIN_KN[:5]
 SERVED_M = (2, 16)
+# (M, K, N) on both sides of the GEMM rule's knee (the GEMV's blocks against
+# those the card holds at once): only the branch sweep times them
+BRANCH_KNEE = ((16, 128, 256), (16, 128, 384), (16, 128, 512), (32, 128, 128), (64, 128, 128), (1, 128, 4096),
+               (1, 128, 8192))
 GRID_MKN = ((8, 16, 128), (32, 64, 128), (128, 128, 256), (16, 96, 384), (3, 37, 11), (48, 80, 112))
+# ragged M, N and K for both GEMM entries: heads of N = 2 and 10, K = 8 and
+# 13, M one past a 16-row tile, and K beyond one block's staged 1024 columns
+SEGMENT_RAGGED = ((17, 13, 10), (2, 8, 2), (17, 640, 10), (1, 13, 640), (33, 200, 24), (5, 2100, 40), (16, 1030, 9))
 # flash attention: tolerance per dtype (tests/test_kernels.py:33), the
 # kernel test grid (B, H, KV, S, D), and qwen2.5-3b's prefill shapes
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -284,11 +311,15 @@ FLASH_BF16_D = (24, 80, 256)
 FLASH_BF16_S = (1, 63, 65, 129)
 # device ms per call of each timed shape with each kernel as it was before its
 # redesign (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700.00 W): flash
-# and moe_gmm on the CUDA cores; ssd_scan as one block per (b, h) walking
+# and moe_gmm on the CUDA cores; matmul_requant as one warp per output;
+# ssd_scan as one block per (b, h) walking
 # the chunks in order, rglru_scan as one thread per channel walking all of T.
 # Keyed by table and shape: printed in the timing tables' `before` column,
 # beside this run's times, and nowhere else
 BEFORE_MS = {
+    ("matmul_requant", (1, 640, 128)): 0.00188, ("matmul_requant", (16, 640, 128)): 0.00236,
+    ("matmul_requant", (16, 128, 128)): 0.00206, ("matmul_requant", (16, 128, 8)): 0.00176,
+    ("matmul_requant", (16, 8, 128)): 0.00209, ("matmul_requant", (16, 128, 640)): 0.00336,
     ("flash", (4, 24)): 0.01694, ("flash", (4, 512)): 0.58414, ("flash", (1, 4096)): 7.68650,
     ("rg_flash", (4, 24)): 0.03146, ("rg_flash", (1, 4096)): 12.49169,
     ("moe_gmm", "wi"): 0.27632, ("moe_gmm", "wo"): 0.16695,
@@ -355,9 +386,22 @@ def graph_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_kernels_us(fn, calls: int = 3) -> dict[str, float]:
-    """Device µs per call of each kernel that ``fn`` launches, by name, from
-    ``torch.profiler`` over ``calls`` calls after a warm-up."""
+def kernel_label(name: str) -> str:
+    """A device kernel's short name: its ``..._kernel`` word, and for
+    PyTorch's elementwise kernels the functor or copy routine inside
+    (``vectorized_elementwise_kernel[FillFunctor]``); a copy event's own
+    name otherwise."""
+    m = re.search(r"(\w+_kernel)", name)
+    if not m:
+        return name[:40]
+    what = re.search(r"::(\w*(?:Functor|_cuda|copy\w*))\b", name)
+    return f"{m.group(1)}[{what.group(1)}]" if what and what.group(1) != m.group(1) else m.group(1)
+
+
+def device_kernels(fn, calls: int = 3) -> dict[str, dict]:
+    """Device kernels per call of ``fn`` by :func:`kernel_label`: how many,
+    and their device µs, from ``torch.profiler`` over ``calls`` calls
+    after a warm-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -367,13 +411,18 @@ def device_kernels_us(fn, calls: int = 3) -> dict[str, float]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out: dict[str, float] = {}
+    out: dict[str, dict] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            m = re.search(r"(\w+_kernel)", e.name)
-            name = m.group(1) if m else e.name[:40]
-            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / calls
+            row = out.setdefault(kernel_label(e.name), {"count": 0.0, "us": 0.0})
+            row["count"] += 1 / calls
+            row["us"] += e.time_range.elapsed_us() / calls
     return out
+
+
+def device_kernels_us(fn, calls: int = 3) -> dict[str, float]:
+    """Device µs per call of each kernel that ``fn`` launches, by name."""
+    return {name: row["us"] for name, row in device_kernels(fn, calls).items()}
 
 
 def eager_ms(fn, iters: int = 200) -> float:
@@ -433,26 +482,34 @@ def ptxas_functions(report: str) -> dict[str, dict]:
 
 
 SCAN_TYPES = {"f": "float", "13__nv_bfloat16": "bf16", "6float4": "float4"}
+GEMM_TYPES = {"a": "int8", "f": "float"}
+# the GEMM kernel's instantiations, the operands' type of each branch (tensor
+# cores and the GEMV): int8 for the int8 entry, float for the segment entry
+GEMM_KERNELS = 4
 
 
 def short_kernel_name(mangled: str) -> str | None:
     """``..._flash_attention_bf16_kernelILi128ELi64ELb1EE...`` ->
     ``flash_attention_bf16_kernel<128, 64, 1>``, ``...22ssd_scan_output_kernelIfEE...``
-    -> ``ssd_scan_output_kernel<float>``; None for another kernel."""
+    -> ``ssd_scan_output_kernel<float>``, ``...matmul_requant_mma_kernelIaE...`` ->
+    ``matmul_requant_mma_kernel<int8>``; None for another kernel."""
     m = re.search(r"((?:flash_attention|moe_gmm)_bf16_kernel)I(.*?)EE", mangled)
     if m:
         return f"{m.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', m.group(2) + 'E'))}>"
     m = re.search(r"\d+((?:ssd|rglru)_scan\w*?_kernel)I(f|13__nv_bfloat16|6float4)E", mangled)
     if m:
         return f"{m.group(1)}<{SCAN_TYPES[m.group(2)]}>"
+    m = re.search(r"\d+(matmul_requant_(?:mma|gemv)_kernel)I([af])E", mangled)
+    if m:
+        return f"{m.group(1)}<{GEMM_TYPES[m.group(2)]}>"
     return None
 
 
 def phase_build(check_spills: bool = True) -> list[dict]:
     """Every kernel's nvcc started at once, one thread each; then the
-    registers and spills of the bf16 tensor-core instantiations and of the
-    scan kernels, which must spill nothing (``check_spills``: and must
-    exist)."""
+    registers and spills of the tensor-core instantiations (bf16 flash and
+    moe_gmm, the int8 GEMM's four) and of the scan kernels, which must
+    spill nothing (``check_spills``: and must exist)."""
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         infos = list(pool.map(_build.build, SOURCES))
     tc = []
@@ -466,84 +523,277 @@ def phase_build(check_spills: bool = True) -> list[dict]:
             name = short_kernel_name(mangled)
             if name is not None:
                 tc.append({"kernel": name, **props})
-    print(f"[build] bf16 tensor-core instantiations (template: DP, BC, ALIGNED for flash; MT, ALIGNED for "
-          f"moe_gmm) and scan kernels (template: the type of B/C, a/b or the carried vector): {len(tc)}")
+    print(f"[build] tensor-core instantiations (template: DP, BC, ALIGNED for flash; MT, ALIGNED for "
+          f"moe_gmm; the operands' type for the int8 GEMM's two branches) and scan kernels (template: the type of B/C, a/b or the carried "
+          f"vector): {len(tc)}")
     for row in tc:
         print(f"    {row['kernel']:44s} registers {row.get('registers', '?'):>3}, spill stores "
               f"{row.get('spill_stores', '?')} B, spill loads {row.get('spill_loads', '?')} B")
     spilled = [r["kernel"] for r in tc if r.get("spill_stores", 1) != 0]
-    if check_spills and (not tc or spilled):
-        raise AssertionError(f"bf16 tensor-core or scan kernels that spill (or no report): "
-                             f"{spilled or 'none found'}")
+    gemms = sum(r["kernel"].startswith("matmul_requant") for r in tc)
+    if check_spills and (not tc or spilled or gemms != GEMM_KERNELS):
+        raise AssertionError(f"tensor-core or scan kernels that spill (or no report, or {gemms} GEMM "
+                             f"instantiations for {GEMM_KERNELS}): {spilled or 'none found'}")
     return tc
 
 
+def gemm_floor(m: int, k: int, n: int):
+    """The launch floor at the GEMM's own launch shape: the package's
+    ``launch_shape`` where it has one, else the shape of the kernel before
+    its redesign (ceil(M N / 8) blocks of 256 threads), for ``--src``."""
+    shape = getattr(MR, "launch_shape", None)
+    blocks, threads = shape(m, n, k)[:2] if shape else (-(-m * n // 8), 256)
+    return launch_floor(blocks, threads)
+
+
+def segment_operands(m: int, k: int, n: int, seed: int, *, fractional: bool = False, misaligned: bool = False,
+                     with_bias: bool = True, big_bias: bool = False, strided_a: bool = False):
+    """The segment entry's operands on the card as the lowering holds them:
+    integer-valued float32 activations (M, K), the dense weight (N, K) and
+    bias (N,) (or None).  ``fractional`` moves every activation and weight
+    by a fraction inside int8 range (truncation toward zero must agree);
+    ``misaligned`` puts A one float off 16 bytes, as an arena view may be;
+    ``big_bias`` draws the bias beyond 2^24, where a float32 holds only
+    even integers; ``strided_a`` hands the activations over as a view with
+    column stride M."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-128, 128, (m, k)).astype(np.float32)
+    w = rng.integers(-128, 128, (n, k)).astype(np.float32)
+    if fractional:
+        x = np.clip(x + rng.uniform(-0.99, 0.99, x.shape), -128.99, 127.99).astype(np.float32)
+        w = np.clip(w + rng.uniform(-0.99, 0.99, w.shape), -128.99, 127.99).astype(np.float32)
+    hi = 1 << 30 if big_bias else 1000
+    b = rng.integers(-hi, hi, (n,)).astype(np.float32)
+    a = torch.from_numpy(x).to(DEV)
+    a = a.T.contiguous().T if strided_a else a
+    return (off_by_one(a) if misaligned else a), torch.from_numpy(w).to(DEV), (torch.from_numpy(b).to(DEV)
+                                                                             if with_bias else None)
+
+
+def library_segment(x, w, bias, shift):
+    """PyTorch's own calls for the segment's function (fp32 addmm on the
+    integer-valued operands, then the epilogue): the yardstick only."""
+    y = torch.addmm(bias, x, w.T)
+    return torch.clamp(torch.round(y / float(1 << shift)), 0, 127)
+
+
 def gemm_row(m: int, k: int, n: int) -> dict:
-    """``matmul_requant``'s times at one (M, K, N), as the lowering calls it
-    (a transposed (N, K) weight, round-half-even, ReLU): in a CUDA graph,
-    launched from Python, the launch floor at its own launch shape
-    (ceil(M N / 8) blocks of 256 threads), the plain version, the library
-    calls and the bound."""
+    """``matmul_requant``'s times at one (M, K, N), as the lowering called it
+    before the segment entry (a transposed (N, K) weight, round-half-even,
+    ReLU): in a CUDA graph, launched from Python, the launch floor at its
+    own launch shape, the plain version, the library calls and the bound."""
     a, w, mult, bias = gemm_operands(m, k, n, seed=7, transposed_w=True)
     af, wf = a.float(), w.float()
     kw = dict(shift=5, relu=True, rounding="even")
     row = {
         "shape": [m, k, n],
         "ms": graph_ms(lambda: matmul_requant(a, w, mult, bias, **kw)),
-        "launch_floor_ms": graph_ms(launch_floor(-(-m * n // 8), 256)),
+        "launch_floor_ms": graph_ms(gemm_floor(m, k, n)),
         "eager_ms": eager_ms(lambda: matmul_requant(a, w, mult, bias, **kw)),
         "plain_ms": graph_ms(lambda: matmul_requant_plain(a, w, mult, bias, **kw)),
         "library_ms": graph_ms(lambda: library_gemm_requant(af, wf, mult, bias, 5)),
+        "before_ms": BEFORE_MS.get(("matmul_requant", (m, k, n))),
     }
     row["bound_ms"], row["bound_by"] = bound(m * k + k * n + 8 * n + m * n, 2 * m * n * k, INT8_OPS_S)
     return row
 
 
+def segment_row(m: int, k: int, n: int) -> dict:
+    """The segment entry's times at one (M, K, N), as the lowering calls it
+    (float32 operands, bias, round-half-even, ReLU), with the bound of its
+    float32 bytes."""
+    x, w, b = segment_operands(m, k, n, seed=7)
+    kw = dict(shift=5, relu=True, rounding="even")
+    row = {
+        "shape": [m, k, n],
+        "ms": graph_ms(lambda: SEGMENT(x, w, b, **kw)),
+        "launch_floor_ms": graph_ms(gemm_floor(m, k, n)),
+        "eager_ms": eager_ms(lambda: SEGMENT(x, w, b, **kw)),
+        "plain_ms": graph_ms(lambda: MR.matmul_requant_f32_plain(x, w, b, **kw)),
+        "library_ms": graph_ms(lambda: library_segment(x, w, b, 5)),
+        "before_ms": None,
+    }
+    row["bound_ms"], row["bound_by"] = bound(4 * (m * k + n * k + n + m * n), 2 * m * n * k, INT8_OPS_S)
+    return row
+
+
 def print_gemm_rows(title: str, rows: list[dict]) -> None:
     print(f"[kernels] {title}, ms per call; graph = device time in a CUDA graph, eager = launched from Python; "
-          "floor = an empty kernel at the same launch shape (ceil(M N / 8) blocks of 256 threads) in a CUDA graph")
+          "floor = an empty kernel at the same launch shape in a CUDA graph; before = the time before the redesign (PERF.md)")
     print(f"    {'M':>3s} {'K':>4s} {'N':>4s} {'kernel':>9s} {'floor':>9s} {'kern eager':>10s} {'plain':>9s} "
-          f"{'library':>9s} {'bound':>9s}")
+          f"{'library':>9s} {'bound':>9s} {'before':>9s}")
     for row in rows:
         m, k, n = row["shape"]
+        before = f"{row['before_ms']:>9.5f}" if row["before_ms"] is not None else f"{'-':>9s}"
         print(f"    {m:>3d} {k:>4d} {n:>4d} {row['ms']:>9.5f} {row['launch_floor_ms']:>9.5f} {row['eager_ms']:>10.5f} "
-              f"{row['plain_ms']:>9.5f} {row['library_ms']:>9.5f} {row['bound_ms']:>9.6f}")
+              f"{row['plain_ms']:>9.5f} {row['library_ms']:>9.5f} {row['bound_ms']:>9.6f} {before}")
+
+
+def check_segment_entry() -> tuple[int, int]:
+    """The segment entry bit-exact with its plain version: the main path's
+    and the served shapes, the ragged grid, A one float off 16 bytes,
+    fractional in-range operands, no bias and a bias beyond 2^24."""
+    shapes = ([(1, k, n) for k, n in MAIN_KN] + [(m, k, n) for m in SERVED_M for k, n in DAE_KN]
+              + list(GRID_MKN) + list(SEGMENT_RAGGED))
+    variants = ({}, {"misaligned": True}, {"fractional": True}, {"with_bias": False}, {"big_bias": True},
+                {"strided_a": True})
+    cases = 0
+    for i, (m, k, n) in enumerate(shapes):
+        for j, variant in enumerate(variants):
+            x, w, b = segment_operands(m, k, n, seed=100 * i + j, **variant)
+            for rounding in ("floor", "even"):
+                for relu in (False, True):
+                    for shift in (0, 5, 13):
+                        kw = dict(shift=shift, relu=relu, rounding=rounding)
+                        got = SEGMENT(x, w, b, **kw)
+                        torch.cuda.synchronize()
+                        want = MR.matmul_requant_f32_plain(x, w, b, **kw)
+                        if got.dtype != torch.float32 or not torch.equal(got, want):
+                            err = float((got.double() - want.double()).abs().max())
+                            raise AssertionError(f"matmul_requant_f32 M,K,N={m},{k},{n} {variant} {kw}: "
+                                                 f"max |kernel - plain| = {err}")
+                        cases += 1
+    return cases, len(shapes)
 
 
 def phase_gemm_kernel() -> dict:
-    """Bit-exact checks, then times at the CNN path's shapes (M = 1) and at
-    DAE's served shapes (M = 16, one row per request of a 16-slot batch)."""
+    """Both GEMM entries bit-exact with their plain versions, then times at
+    the CNN path's shapes (M = 1) and at DAE's served shapes (M = 16, one
+    row per request of a 16-slot batch)."""
     worst = 0
     cases = 0
     shapes = ([(1, k, n, True) for k, n in MAIN_KN] + [(m, k, n, True) for m in SERVED_M for k, n in DAE_KN]
-              + [(m, k, n, False) for m, k, n in GRID_MKN])
+              + [(m, k, n, False) for m, k, n in GRID_MKN] + [(m, k, n, tw) for m, k, n in SEGMENT_RAGGED
+                                                             for tw in (False, True)])
+    # A contiguous, and (a tree before the redesign, driven by --src, takes
+    # unit column stride only) A with column stride M: the element-wise loads
+    layouts = ("contiguous", "column stride M") if SEGMENT is not None else ("contiguous",)
     for i, (m, k, n, tw) in enumerate(shapes):
-        a, w, mult, bias = gemm_operands(m, k, n, seed=i, transposed_w=tw)
-        for rounding in ("floor", "even"):
-            for relu in (False, True):
-                for shift in (0, 5, 8, 13):
-                    got = matmul_requant(a, w, mult, bias, shift=shift, relu=relu, rounding=rounding)
-                    torch.cuda.synchronize()
-                    want = matmul_requant_plain(a, w, mult, bias, shift=shift, relu=relu, rounding=rounding)
-                    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-                    if err:
-                        raise AssertionError(
-                            f"matmul_requant M,K,N={m},{k},{n} {rounding} relu={relu} "
-                            f"shift={shift}: max |kernel - plain| = {err}"
-                        )
-                    worst = max(worst, err)
-                    cases += 1
+        a0, w, mult, bias = gemm_operands(m, k, n, seed=i, transposed_w=tw)
+        for layout in layouts:
+            a = a0 if layout == "contiguous" else a0.T.contiguous().T
+            for rounding in ("floor", "even"):
+                for relu in (False, True):
+                    for shift in (0, 5, 8, 13):
+                        got = matmul_requant(a, w, mult, bias, shift=shift, relu=relu, rounding=rounding)
+                        torch.cuda.synchronize()
+                        want = matmul_requant_plain(a, w, mult, bias, shift=shift, relu=relu, rounding=rounding)
+                        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+                        if err:
+                            raise AssertionError(
+                                f"matmul_requant M,K,N={m},{k},{n} A {layout} {rounding} relu={relu} "
+                                f"shift={shift}: max |kernel - plain| = {err}"
+                            )
+                        worst = max(worst, err)
+                        cases += 1
     print(f"[kernels] matmul_requant bit-exact vs matmul_requant_plain on {cases} cases "
-          f"({len(shapes)} shapes, M = 1 and M in {SERVED_M} at DAE's (K, N) among them, x 2 roundings "
-          "x relu on/off x 4 shifts)")
-    rows = [gemm_row(1, k, n) for k, n in MAIN_KN]
-    print_gemm_rows("main-path shapes (M=1)", rows)
-    served = [gemm_row(16, k, n) for k, n in DAE_KN]
-    print_gemm_rows("served shapes (M=16, DAE's (K, N))", served)
-    one = graph_ms(launch_floor(1, 32))
+          f"({len(shapes)} shapes, M = 1 and M in {SERVED_M} at DAE's (K, N) among them, x A {' and '.join(layouts)} "
+          "x 2 roundings x relu on/off x 4 shifts)")
+    out = {"max_abs_err": worst}
+    if SEGMENT is not None:
+        seg_cases, seg_shapes = check_segment_entry()
+        print(f"[kernels] matmul_requant_f32 (the segment entry) bit-exact vs matmul_requant_f32_plain on "
+              f"{seg_cases} cases ({seg_shapes} shapes x {{as drawn, A one float off 16 bytes, fractional "
+              "operands, no bias, bias beyond 2^24, A with column stride M}} x 2 "
+              "roundings x relu on/off x 3 shifts)")
+    out["rows"] = [gemm_row(1, k, n) for k, n in MAIN_KN]
+    print_gemm_rows("matmul_requant, main-path shapes (M=1)", out["rows"])
+    out["served_rows"] = [gemm_row(16, k, n) for k, n in DAE_KN]
+    print_gemm_rows("matmul_requant, served shapes (M=16, DAE's (K, N))", out["served_rows"])
+    if SEGMENT is not None:
+        out["segment_rows"] = [segment_row(1, k, n) for k, n in MAIN_KN]
+        print_gemm_rows("matmul_requant_f32 (segment entry; bound by float32 bytes), main-path shapes (M=1)",
+                        out["segment_rows"])
+        out["segment_served_rows"] = [segment_row(16, k, n) for k, n in DAE_KN]
+        print_gemm_rows("matmul_requant_f32 (segment entry), served shapes (M=16)", out["segment_served_rows"])
+    out["launch_floor_ms"] = graph_ms(launch_floor(1, 32))
     print(f"[kernels] launch floor: an empty sm_90a kernel of 1 block x 32 threads in a CUDA graph, "
-          f"{one:.5f} ms per launch")
-    return {"max_abs_err": worst, "rows": rows, "served_rows": served, "launch_floor_ms": one}
+          f"{out['launch_floor_ms']:.5f} ms per launch")
+    return out
+
+
+def branch_call(m: int, k: int, n: int, segment: bool, path: int):
+    """One entry's launch at (M, K, N) as the lowering calls it, on a
+    forced branch (``MR.TENSOR_CORES`` or ``MR.GEMV``), and its plain
+    version's output."""
+    kw = dict(shift=5, relu=True, rounding="even")
+    if segment:
+        x, w, b = segment_operands(m, k, n, seed=7)
+        out = torch.empty((m, n), dtype=torch.float32, device=DEV)
+        return (lambda: MR._launch(x, w, None, b, out, w.stride(0), w.stride(1), 5, "even", True, segment=True,
+                                   path=path)), out, MR.matmul_requant_f32_plain(x, w, b, **kw)
+    a, w, mult, bias = gemm_operands(m, k, n, seed=7, transposed_w=True)
+    out = torch.empty((m, n), dtype=torch.int8, device=DEV)
+    return (lambda: MR._launch(a, w, mult, bias, out, w.stride(1), w.stride(0), 5, "even", True, segment=False,
+                               path=path)), out, matmul_requant_plain(a, w, mult, bias, **kw)
+
+
+def phase_gemm_branches() -> list[dict]:
+    """The data behind the kernel's rule (the GEMV up to 512 blocks of 8
+    outputs, the tensor cores beyond): both entries at M = 1 on the main
+    path's shapes, at the served M = 16 on DAE's, and across the knee
+    (``BRANCH_KNEE``), each branch forced (the
+    GEMV: one warp per output (m, n)), checked bit-exact with the plain
+    version and timed in a CUDA graph beside its own launch floor."""
+    rows = []
+    print("[kernels] matmul_requant branches, ms per call in a CUDA graph (each branch bit-exact with the plain "
+          "version; floor at the branch's own launch shape; GEMV = one warp per output (m, n), blocks = its "
+          "M x ceil(N / 8) blocks); the rule takes the GEMV up to 512 blocks and the tensor cores beyond")
+    print(f"    {'entry':8s} {'M':>3s} {'K':>4s} {'N':>5s} {'blocks':>6s} {'tensor cores':>12s} {'floor':>9s} "
+          f"{'GEMV':>9s} {'floor':>9s} {'faster':>12s} {'rule':>12s}")
+    shapes = [(1, k, n) for k, n in MAIN_KN] + [(16, k, n) for k, n in DAE_KN] + list(BRANCH_KNEE)
+    label = {MR.TENSOR_CORES: "tensor cores", MR.GEMV: "GEMV"}
+    for segment in (False, True):
+        for m, k, n in shapes:
+            row = {"entry": "f32" if segment else "int8", "shape": [m, k, n], "gemv_blocks": m * -(-n // 8)}
+            for path, key in ((MR.TENSOR_CORES, "mma"), (MR.GEMV, "gemv")):
+                call, out, want = branch_call(m, k, n, segment, path)
+                call()
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise AssertionError(f"matmul_requant {row['entry']} branch {key} at M,K,N={m},{k},{n}: "
+                                         "differs from the plain version")
+                row[f"{key}_ms"] = graph_ms(call)
+                row[f"{key}_floor_ms"] = graph_ms(launch_floor(*MR.launch_shape(m, n, k, path)[:2]))
+            row["faster"] = "GEMV" if row["gemv_ms"] < row["mma_ms"] else "tensor cores"
+            row["rule"] = label[MR.launch_shape(m, n, k)[2]]
+            rows.append(row)
+            print(f"    {row['entry']:8s} {m:>3d} {k:>4d} {n:>5d} {row['gemv_blocks']:>6d} {row['mma_ms']:>12.5f} "
+                  f"{row['mma_floor_ms']:>9.5f} {row['gemv_ms']:>9.5f} {row['gemv_floor_ms']:>9.5f} "
+                  f"{row['faster']:>12s} {row['rule']:>12s}")
+    agree = sum(r["faster"] == r["rule"] for r in rows)
+    print(f"[kernels] the rule takes the faster branch at {agree} of {len(rows)} shapes")
+    return rows
+
+
+def phase_gemm_segments() -> list[dict]:
+    """DAE's GEMM segments on h100 as the lowering runs them: each (K, N)'s
+    first ``LoweredSegment.fn`` on an (M, K) integer-valued float32 input at
+    M = 1 and at the served M = 16; device ms per call in a CUDA graph (all
+    that one call issues) and the device kernels of one call (profiler)."""
+    g = mlperf_tiny_networks()["DAE"]
+    cm = lower(dispatch(g, "h100", budget=300))
+    dev_params = params_to_torch(init_graph_params(g), cm.device)
+    rows, seen = [], set()
+    print("[kernels] DAE x h100 GEMM segments (LoweredSegment.fn), device ms per call in a CUDA graph; kernels "
+          "and µs: the device kernels of one call by the profiler")
+    for ls in cm.segments:
+        sp = ls.params_slice(dev_params)
+        n, k = sp[ls.segment.anchor.name]["w"].shape if ls.route == "pallas_gemm" else (0, 0)
+        if ls.route != "pallas_gemm" or (k, n) in seen:
+            continue
+        seen.add((k, n))
+        for m in (1, 16):
+            x = torch.from_numpy(np.random.default_rng(m + k + n).integers(-128, 128, (m, k)).astype(np.float32)).to(DEV)
+            kern = device_kernels(lambda: ls.fn(sp, x))  # noqa: B023 (called before the loop moves on)
+            row = {"segment": ls.name, "shape": [m, k, n], "ms": graph_ms(lambda: ls.fn(sp, x)),  # noqa: B023
+                   "kernels": round(sum(r["count"] for r in kern.values())),
+                   "device_us": sum(r["us"] for r in kern.values()), "by_name": kern}
+            rows.append(row)
+            print(f"    {ls.name:10s} M,K,N={m:>2d},{k:>3d},{n:>3d}: {row['ms']:.5f} ms; {row['kernels']} kernels, "
+                  f"{row['device_us']:.2f} µs: " + ", ".join(f"{nm} x{r['count']:.0f} {r['us']:.2f}"
+                                                            for nm, r in kern.items()))
+    return rows
 
 
 def check_outputs(where: str, outs: list[dict], refs: list[dict]) -> None:
@@ -585,6 +835,22 @@ def print_h100_timings(cm, dev_params: dict, x: dict) -> None:
               f"measured {tm.measured_cycles:>10.0f} ({tm.measured_us:8.2f} us) x{ratio:.1f}")
     total = sum(tm.measured_cycles for tm in cm.last_timings)
     print(f"    total: predicted {cm.predicted_cycles():.0f} cycles, measured {total:.0f}")
+
+
+def print_replay_kernels(where: str, run, gemm_segments: int, calls: int = 10) -> dict:
+    """The device kernels of one AOT ``run`` (the input copies, one replay,
+    the output copies), by name with count and µs per run (profiler, mean
+    of ``calls`` runs), beside the GEMM launches the wrapper counted."""
+    before = read_counts()["matmul_requant"]
+    kern = device_kernels(run, calls=calls)
+    counted = (read_counts()["matmul_requant"] - before) / (calls + 1)  # the warm-up run too
+    total = sum(r["count"] for r in kern.values())
+    print(f"[cnn] {where}: device kernels of one AOT xla run (profiler, mean of {calls} runs; {gemm_segments} GEMM "
+          f"segments, {counted:g} GEMM launches counted per run): {total:.1f} kernels, "
+          f"{sum(r['us'] for r in kern.values()):.2f} µs; "
+          + "; ".join(f"{nm} x{r['count']:.1f} {r['us']:.2f} µs"
+                      for nm, r in sorted(kern.items(), key=lambda kv: -kv[1]["us"])))
+    return {"kernels": total, "gemm_launches": counted, "by_name": kern}
 
 
 def phase_cnn_path() -> dict:
@@ -660,6 +926,9 @@ def phase_cnn_path() -> dict:
                 cell[f"launches_aot_{memory}"] = counts["matmul_requant"]
                 cell[f"aot_{memory}_capture_ms"] = entry.compile_us / 1e3
                 cell[f"aot_{memory}_ms"], runs = host_ms(lambda: am.run(params, requests[0]))
+                if memory == "xla" and (net, tgt) in BREAKDOWN_CELLS:
+                    cell["replay_kernels"] = print_replay_kernels(f"{net} x {tgt}", lambda: am.run(params, requests[0]),
+                                                                  gemm_segments)
                 aot_line.append(f"{memory} capture {entry.compile_us / 1e3:.1f} ms"
                                 + (f", arena {entry.arena_elems} floats" if memory == "arena" else ""))
             cell["eager_ms"], eager_runs = host_ms(lambda: cm.run(dev_params, requests[0]))
@@ -771,16 +1040,51 @@ def slo_specs() -> list:
     ]
 
 
+def time_calls(obj, name: str, sink: list) -> None:
+    """Replace the method ``obj.name`` on this instance by one that appends
+    each call's host ms (``time.perf_counter``) to ``sink``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            sink.append((time.perf_counter() - t0) * 1e3)
+    setattr(obj, name, timed)
+
+
+def serve_host_ms(span_s: float, host: dict) -> dict:
+    """The serving thread's host ms over one round of load: its rounds in
+    all, and per batch the launch (``run_batch_async``: stacking, the
+    copies in, the replay), the wait on the batch's CUDA event and the
+    resolution of its requests (``_resolve``); in ``pipeline`` mode the
+    launch and wait are inside ``run_stream``, counted in ``other_ms``."""
+    rounds, resolve = sum(host["round"]), sum(host["resolve"])
+    out = {"span_ms": span_s * 1e3, "rounds_ms": rounds, "resolve_ms": resolve,
+           "launch_ms": sum(host["launch"]), "finish_ms": sum(host["finish"])}
+    out["wait_ms"] = out["finish_ms"] - resolve if host["finish"] else None
+    # the rest of the rounds: shedding, the stream schedule, padding, stats
+    out["other_ms"] = rounds - out["launch_ms"] - (out["finish_ms"] if host["finish"] else resolve)
+    out["idle_ms"] = out["span_ms"] - rounds  # between rounds: the queue's take
+    return out
+
+
 def serve_round(cm, dev_params: dict, xs: list[dict], refs: list[dict], rate_rps: float, mode: str) -> dict:
     """One open-loop Poisson round (seed 1) at ``rate_rps`` through a
     16-slot replica, every served row held against ``refs``; launches
-    counted from 0 after the warm-up."""
+    counted from 0 after the warm-up; the serving thread's host ms by step
+    (:func:`serve_host_ms`), timed from the warm-up on."""
     gemms = cm.routes().get("pallas_gemm", 0)
     rng = np.random.default_rng(1)
+    host = {"round": [], "launch": [], "finish": [], "resolve": []}
     with ModelServer(cm, dev_params, batch_slots=SERVE_BATCH, stream_depth=SERVE_DEPTH, queue_capacity=len(xs),
                      mode=mode, slo=slo_specs()) as srv:
         srv.warmup(xs[0])  # the batch graph captured before load arrives
         torch.cuda.synchronize()
+        for obj, name, key in ((srv, "_serve_round", "round"), (srv.batched, "run_batch_async", "launch"),
+                               (srv, "_finish", "finish"), (srv, "_resolve", "resolve")):
+            time_calls(obj, name, host[key])
         reset_counts()
         arrivals = np.cumsum(rng.exponential(1.0 / rate_rps, size=len(xs)))
         t0 = time.perf_counter()
@@ -803,7 +1107,8 @@ def serve_round(cm, dev_params: dict, xs: list[dict], refs: list[dict], rate_rps
     return {"sustained_rps": len(xs) / span_s, "p50_us": stats["latency_us"]["p50"],
             "p99_us": stats["latency_us"]["p99"], "batches": stats["batches"], "rounds": stats["rounds"],
             "launches": counts["matmul_requant"], "slo_breached": stats["slo"]["breached"],
-            "capture_ms": {e["batch"]: e["compile_us"] / 1e3 for e in stats["entries"]}}
+            "capture_ms": {e["batch"]: e["compile_us"] / 1e3 for e in stats["entries"]},
+            "host": serve_host_ms(span_s, host)}
 
 
 def phase_cnn_serve() -> dict:
@@ -838,6 +1143,13 @@ def phase_cnn_serve() -> dict:
                       f"{r['sustained_rps']:.1f} (x{r['sustained_rps'] / seq_rps:.2f}); latency us p50 "
                       f"{r['p50_us']:.0f} p99 {r['p99_us']:.0f}; capture ms per batch shape {r['capture_ms']}; "
                       f"SLO {'breached' if r['slo_breached'] else 'ok'}")
+                h, nb = r["host"], r["batches"]
+                split, rest = ((f"launch {h['launch_ms'] / nb:.3f}, wait {h['wait_ms'] / nb:.3f}, ", "the rest")
+                               if h["wait_ms"] is not None else ("", "run_stream (launch and wait) and the rest"))
+                print(f"[cnn-serve] {net:5s} x {tgt:9s} {mode:8s}: serving thread host ms over the load's "
+                      f"{h['span_ms']:.3f}: rounds {h['rounds_ms']:.3f} (idle between rounds {h['idle_ms']:.3f}); "
+                      f"per batch {h['rounds_ms'] / nb:.3f}: {split}resolve {h['resolve_ms'] / nb:.3f}, "
+                      f"{rest} of the round {h['other_ms'] / nb:.3f}")
                 if r["slo_breached"]:
                     raise AssertionError(f"[cnn-serve] {net}x{tgt} {mode}: the generous SLOs breached")
             cells.append(cell)
@@ -1985,8 +2297,12 @@ def main() -> None:
 
     phase_build(check_spills=os.path.abspath(ARGS.src) == CHECKOUT_SRC)
     only = set(ARGS.only)
-    if "kernels" in only:
+    if "gemm" in only:
         gemm = phase_gemm_kernel()
+        if SEGMENT is not None:
+            gemm["branches"] = phase_gemm_branches()
+        gemm["segments"] = phase_gemm_segments()
+    if "kernels" in only:
         flash = phase_flash_kernel()
         flash_rows = phase_flash_timing()
         gmm = phase_moe_gmm_kernel()
@@ -2028,13 +2344,19 @@ def main() -> None:
         return [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                 for r in rows]
 
-    big = max(gemm["rows"], key=lambda r: r["shape"][1] * r["shape"][2])
+    # the main path calls the segment entry (``entry``): its largest M = 1 shape
+    # heads the kernel's entry, bounded by its float32 bytes
+    rowkeys = ("shape", "ms", "launch_floor_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    big = max(gemm["segment_rows"], key=lambda r: r["shape"][1] * r["shape"][2])
     entries = [
-        kernel_entry("matmul_requant", cnn["launches"], gemm, big, launch_floor_ms=big["launch_floor_ms"],
+        kernel_entry("matmul_requant", cnn["launches"], gemm, big, entry="matmul_requant_f32",
+                     launch_floor_ms=big["launch_floor_ms"],
                      launch_floor_1x32_ms=gemm["launch_floor_ms"], launches_aot=cnn["launches_aot"],
                      launches_pipeline=pipe["launches"], launches_cnn_serve=cnn_serve["launches"],
-                     served_shapes=[{k: r[k] for k in ("shape", "ms", "launch_floor_ms", "plain_ms", "library_ms",
-                                                       "bound_ms", "bound_by")} for r in gemm["served_rows"]]),
+                     served_shapes=[{k: r[k] for k in rowkeys} for r in gemm["segment_served_rows"]],
+                     int8_entry_shapes=[{k: r[k] for k in rowkeys} for r in gemm["rows"] + gemm["served_rows"]],
+                     segments=[{k: r[k] for k in ("segment", "shape", "ms", "kernels", "device_us")}
+                               for r in gemm["segments"]], branches=gemm["branches"]),
         # the serving engine's prefill shape first
         kernel_entry("flash_attention", served[LM_ARCH]["launches"]["flash_attention"], flash, flash_rows[0],
                      max_abs_err_f32=flash["max_abs_err_f32"], prefill_shapes=shapes(flash_rows),

@@ -10,10 +10,11 @@ executor, a Python function over tensors on the model's device:
   chain follows as the segment epilogue.
 * **int8 dense anchors with a plain-shift requant epilogue** (route
   ``pallas_gemm``, the reference's name kept so ``routes()`` compare key
-  for key) run the hand-written Hopper int8 GEMM
-  :func:`repro_torch.kernels.matmul_requant` with ``rounding="even"``,
-  which reproduces the interpreter's round-half-to-even requant
-  bit-exactly.  In this package ``pallas_gemm`` *is* the CUDA kernel.
+  for key) run the hand-written Hopper int8 GEMM through its segment
+  entry :func:`repro_torch.kernels.matmul_requant.matmul_requant_f32`
+  with ``rounding="even"``, which reproduces the interpreter's
+  round-half-to-even requant bit-exactly, in one launch per segment.  In
+  this package ``pallas_gemm`` *is* the CUDA kernel.
 * **everything else** (elementwise chains, pools, structural ops, CPU
   fallback segments) evaluates through the op library shared with the
   interpreter (``repro_torch.cnn.execute.apply_node``).
@@ -42,7 +43,7 @@ from repro_torch.core import (
     Node,
     schedule_from_result,
 )
-from repro_torch.kernels.matmul_requant import matmul_requant
+from repro_torch.kernels.matmul_requant import matmul_requant_f32
 from repro_torch.kernels.tiled_conv import tiled_conv2d
 
 from .memory import plan_memory
@@ -129,16 +130,21 @@ def _tiled_conv_impl(anchor: Node, ksched: KernelSchedule | None, band_tiling: b
 
 
 def _gemm_fn(seg: MappedSegment, ref_fn: Callable):
-    """dense(+bias)+requant(+relu) through the Hopper int8 GEMM.
+    """dense(+bias)+requant(+relu) as one launch of the Hopper int8 GEMM.
 
     Activations and weights are integer-valued by the integerized-graph
     contract (every route into a dense passes a requant clip), so the int8
-    casts are lossless.  The dense weight is stored ``(N, K)``; the kernel
-    reads its ``(K, N)`` transposed view through strides, without a copy.
-    If the params supply a requant scale/addend at run time (which the
-    GEMM epilogue does not model), the call evaluates ``ref_fn`` — the
-    segment's fused reference executor — instead of diverging: that is
-    the segment's semantics, not a device fallback.
+    casts are lossless; the segment entry
+    :func:`~repro_torch.kernels.matmul_requant.matmul_requant_f32` makes
+    them in registers, reads the dense weight as stored ``(N, K)`` and
+    writes float32, so the segment issues that launch and nothing else
+    (no cast, no ``mult`` of ones, no zero bias).  Float32 activations go
+    in as they are; another input dtype (a caller's int8 or int32 graph
+    input) is first cast to float32, as the reference casts.  If the
+    params supply a requant scale/addend at run time (which the GEMM
+    epilogue does not model), the call evaluates ``ref_fn`` — the
+    segment's fused reference executor — instead of diverging: that is the
+    segment's semantics, not a device fallback.
     """
     anchor = seg.anchor
     has_relu = "relu" in [n.op for n in seg.epilogue]
@@ -151,17 +157,14 @@ def _gemm_fn(seg: MappedSegment, ref_fn: Callable):
         rp = seg_params.get(requant_node.name, {})
         if "scale" in rp or "addend" in rp:
             return ref_fn(seg_params, x)
-        a8 = x.reshape(x.shape[0], -1).to(torch.int8)
-        w8 = seg_params[anchor.name]["w"].to(torch.int8)  # (N, K)
-        n_out = w8.shape[0]
-        if bias_node is not None:
-            bias = seg_params[bias_node.name]["b"].to(torch.int32)
-        else:
-            bias = torch.zeros(n_out, dtype=torch.int32, device=x.device)
-        mult = torch.ones(n_out, dtype=torch.int32, device=x.device)
+        if x.dtype != torch.float32:
+            x = x.to(torch.float32)  # as the reference's jnp.asarray(x, jnp.float32)
+        bias = seg_params[bias_node.name]["b"] if bias_node is not None else None
         shift = int(rp.get("shift", default_shift))
-        y8 = matmul_requant(a8, w8.T, mult, bias, shift=shift, relu=has_relu, rounding="even")
-        return y8.to(torch.float32)
+        return matmul_requant_f32(
+            x.reshape(x.shape[0], -1), seg_params[anchor.name]["w"], bias,
+            shift=shift, relu=has_relu, rounding="even",
+        )
 
     return fn
 

@@ -1,9 +1,12 @@
 """repro_torch.kernels — the compute hot spots of the port.
 
 * :func:`matmul_requant` — int8 GEMM + requant epilogue, a hand-written
-  CUDA kernel for Hopper (``csrc/matmul_requant.cu``) in place of the
-  reference's Pallas TPU kernel, with :func:`matmul_requant_plain` beside
-  it for CPU tensors;
+  CUDA kernel for Hopper (``csrc/matmul_requant.cu``, int8 tensor cores)
+  in place of the reference's Pallas TPU kernel, with
+  :func:`matmul_requant_plain` beside it for CPU tensors; its segment
+  entry :func:`matmul_requant_f32` (float32 operands converted inside the
+  kernel, one launch per GEMM segment of the CNN path) with
+  :func:`matmul_requant_f32_plain`;
 * :func:`flash_attention` — blocked GQA attention with an online softmax
   (causal, sliding window, ``q_offset``), a hand-written CUDA kernel
   (``csrc/flash_attention.cu``) in place of the reference's Pallas
@@ -25,7 +28,12 @@
 
 from . import ref
 from .flash_attention import flash_attention, flash_attention_plain
-from .matmul_requant import matmul_requant, matmul_requant_plain
+from .matmul_requant import (
+    matmul_requant,
+    matmul_requant_f32,
+    matmul_requant_f32_plain,
+    matmul_requant_plain,
+)
 from .moe_gmm import moe_gmm, moe_gmm_plain
 from .rglru_scan import rglru_scan, rglru_scan_plain
 from .ssd_scan import ssd_scan, ssd_scan_plain
@@ -36,6 +44,8 @@ __all__ = [
     "flash_attention",
     "flash_attention_plain",
     "matmul_requant",
+    "matmul_requant_f32",
+    "matmul_requant_f32_plain",
     "matmul_requant_plain",
     "moe_gmm",
     "moe_gmm_plain",

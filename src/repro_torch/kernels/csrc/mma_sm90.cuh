@@ -1,6 +1,7 @@
 // Device helpers shared by the tensor-core kernels (flash_attention.cu,
-// moe_gmm.cu): ldmatrix fragment loads, the bf16 m16n8k16 mma.sync,
-// 16-byte cp.async copies with zero fill, and packing fp32 pairs to bf16.
+// moe_gmm.cu, matmul_requant.cu): ldmatrix fragment loads, the bf16
+// m16n8k16 and the int8 m16n8k32 mma.sync, 16-byte cp.async copies with
+// zero fill, and packing fp32 pairs to bf16.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -44,6 +45,26 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b on the tensor cores: A 16 x 32 and B 32 x 8 in int8, D in int32
+// (exact: no saturation, the products and sums are integers).  Layout (PTX
+// ISA, "Matrix fragments for mma.m16n8k32", .s8), g = lane / 4, t = lane % 4,
+// each 32-bit register holding four int8 with the lowest k in the low byte:
+//   A (16 x 32, row-major): a0 = (g, 4t..4t+3),      a1 = (g + 8, 4t..4t+3),
+//                           a2 = (g, 4t+16..4t+19),  a3 = (g + 8, 4t+16..4t+19)
+//   B (32 x 8, "col"):      b0 = (k 4t..4t+3, n g),  b1 = (k 4t+16..4t+19, n g)
+//   C (16 x 8, int32):      c0, c1 = (g, 2t..2t+1),  c2, c3 = (g + 8, 2t..2t+1)
+// Which k a register holds depends on t alone, the same in A and B, so a
+// kernel may feed the k of a 32-wide step in any order that is a function of
+// t and the register's place, as long as A and B agree (matmul_requant.cu
+// does, so that each lane loads 16 consecutive k of W at once).
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

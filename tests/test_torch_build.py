@@ -15,7 +15,7 @@ from repro_torch.kernels import _build, _layout
 
 REPO = Path(__file__).resolve().parents[1]
 KERNELS = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-TENSOR_CORE = {"flash_attention", "moe_gmm"}  # the sources that include mma_sm90.cuh
+TENSOR_CORE = {"flash_attention", "matmul_requant", "moe_gmm"}  # the sources that include mma_sm90.cuh
 
 
 @pytest.fixture

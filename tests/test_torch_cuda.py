@@ -1,5 +1,6 @@
 """The port on the CUDA card: the Hopper kernels against their plain
-versions (the bf16 tensor-core paths also at ragged head dims and
+versions (the GEMM's segment entry also on arena views and fractional
+inputs, and one launch per GEMM segment; the bf16 tensor-core paths also at ragged head dims and
 lengths, on misaligned rows and on rows with no valid key), one net through the CNN main path bit-exact, a 2-layer LM
 whose prefill goes through the flash kernel, the two scans over many
 time chunks at full width (``rglru_scan`` on both sides of its short-T
@@ -20,6 +21,8 @@ from repro_torch.kernels import (
     flash_attention,
     flash_attention_plain,
     matmul_requant,
+    matmul_requant_f32,
+    matmul_requant_f32_plain,
     matmul_requant_plain,
     moe_gmm,
     moe_gmm_plain,
@@ -87,6 +90,163 @@ def test_dscnn_main_path_bit_exact_on_card(cuda):
         assert out[k].device.type == "cuda"
         assert torch.equal(out[k].cpu(), ref[k])
     assert cm.verify(params, x, per_segment=True).exact
+
+
+# the GEMM segment entry (matmul_requant_f32): every dense (K, N) of the CNN
+# path at M = 1 and the served M = 16, and ragged M, N, K
+MAIN_KN = [(640, 128), (128, 128), (128, 8), (8, 128), (128, 640), (64, 10), (256, 2), (64, 12)]
+SEGMENT_SHAPES = [(m, k, n) for m in (1, 16) for k, n in MAIN_KN] + [
+    (17, 13, 10), (2, 8, 2), (17, 640, 10), (1, 13, 640), (33, 200, 24), (5, 2100, 40)]
+
+
+def _segment_operands(cuda, M, K, N, seed, fractional=False):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-128, 128, (M, K)).astype(np.float32)
+    w = rng.integers(-128, 128, (N, K)).astype(np.float32)
+    if fractional:  # inside int8 range: truncation toward zero must agree
+        x = np.clip(x + rng.uniform(-0.99, 0.99, x.shape), -128.99, 127.99).astype(np.float32)
+        w = np.clip(w + rng.uniform(-0.99, 0.99, w.shape), -128.99, 127.99).astype(np.float32)
+    b = rng.integers(-1000, 1000, (N,)).astype(np.float32)
+    return [torch.from_numpy(v).to(cuda) for v in (x, w, b)]
+
+
+def _segment_equal(x, w, b, **kw):
+    before = matmul_requant.launches
+    got = matmul_requant_f32(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert matmul_requant.launches == before + 1
+    want = matmul_requant_f32_plain(x, w, b, **kw)
+    assert got.dtype == torch.float32 and torch.equal(got, want), kw
+
+
+@pytest.mark.parametrize("M,K,N", SEGMENT_SHAPES)
+def test_segment_entry_matches_plain_version(cuda, M, K, N):
+    x, w, b = _segment_operands(cuda, M, K, N, seed=M * K + N)
+    for rounding in ("floor", "even"):
+        for relu in (False, True):
+            for bias in (b, None):
+                _segment_equal(x, w, bias, shift=5, relu=relu, rounding=rounding)
+    with pytest.raises(TypeError):  # the lowering casts an int8 graph input to float32 first
+        matmul_requant_f32(x.to(torch.int8), w, b)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 640, 128), (1, 8, 128), (1, 13, 10), (1, 2100, 40)])
+def test_both_branches_match_plain_version_at_one_row(cuda, M, K, N):
+    """The rule sends these calls to the GEMV branch; the tensor-core
+    branch, forced, must give the same bits there (the sweep in
+    chip_smoke.py times both)."""
+    import importlib
+
+    mr = importlib.import_module("repro_torch.kernels.matmul_requant")
+    x, w, b = _segment_operands(cuda, M, K, N, seed=3)
+    want = matmul_requant_f32_plain(x, w, b, shift=5, relu=True, rounding="even")
+    for path in (mr.TENSOR_CORES, mr.GEMV):
+        out = torch.empty((M, N), dtype=torch.float32, device=cuda)
+        mr._launch(x, w, None, b, out, w.stride(0), w.stride(1), 5, "even", True, segment=True, path=path)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), path
+
+
+@pytest.mark.parametrize("segment", [False, True])
+@pytest.mark.parametrize("M,K,N", [(16, 640, 128), (16, 128, 640), (17, 13, 10), (40, 1030, 9), (16, 128, 4096)])
+def test_both_branches_match_plain_version_at_many_rows(cuda, M, K, N, segment):
+    """Both branches of both entries, each forced, give the plain version's
+    bits at served and ragged row counts, on either side of the rule's knee;
+    the rule takes the GEMV up to 512 blocks of 8 outputs."""
+    import importlib
+
+    mr = importlib.import_module("repro_torch.kernels.matmul_requant")
+    kw = dict(shift=5, relu=True, rounding="even")
+    if segment:
+        x, w, b = _segment_operands(cuda, M, K, N, seed=6)
+        want = matmul_requant_f32_plain(x, w, b, **kw)
+        args, strides, dtype = (x, w, None, b), (w.stride(0), w.stride(1)), torch.float32
+    else:
+        rng = np.random.default_rng(6)
+        a, w = (torch.from_numpy(rng.integers(-128, 128, s).astype(np.int8)).to(cuda) for s in ((M, K), (N, K)))
+        w = w.T  # the (K, N) view of an (N, K) weight
+        mult = torch.from_numpy(rng.integers(1, 8, (N,)).astype(np.int32)).to(cuda)
+        bias = torch.from_numpy(rng.integers(-1000, 1000, (N,)).astype(np.int32)).to(cuda)
+        want = matmul_requant_plain(a, w, mult, bias, **kw)
+        args, strides, dtype = (a, w, mult, bias), (w.stride(1), w.stride(0)), torch.int8
+    for path in (mr.TENSOR_CORES, mr.GEMV):
+        out = torch.empty((M, N), dtype=dtype, device=cuda)
+        mr._launch(*args, out, *strides, 5, "even", True, segment=segment, path=path)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), path
+    assert mr.launch_shape(M, N, K)[2] == (mr.GEMV if M * -(-N // 8) <= 512 else mr.TENSOR_CORES)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 640, 128), (16, 640, 128), (16, 8, 128), (17, 13, 10)])
+def test_segment_entry_takes_a_four_byte_aligned_arena_view(cuda, M, K, N):
+    """In memory="arena" an activation is a float32 view at a planned
+    offset: A may be 4-byte aligned only (and any view may be strided)."""
+    x, w, b = _segment_operands(cuda, M, K, N, seed=1)
+    arena = torch.zeros(1 + M * K, dtype=torch.float32, device=cuda)
+    view = arena[1:].view(M, K)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 4
+    for rounding in ("floor", "even"):
+        _segment_equal(view, w, b, shift=5, relu=False, rounding=rounding)
+    _segment_equal(x.T.contiguous().T, w, b, shift=5, relu=True, rounding="even")  # column stride M
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 640, 128), (16, 128, 640), (17, 13, 10)])
+def test_segment_entry_truncates_non_integer_inputs_as_the_cast_does(cuda, M, K, N):
+    x, w, b = _segment_operands(cuda, M, K, N, seed=2, fractional=True)
+    assert not torch.equal(x, x.trunc())
+    for rounding in ("floor", "even"):
+        _segment_equal(x, w, b, shift=5, relu=False, rounding=rounding)
+
+
+@pytest.mark.parametrize("M", [1, 16])
+def test_gemm_segment_is_one_launch_of_one_device_kernel(cuda, M):
+    """Every DAE GEMM segment on the card: one counted launch, and the
+    profiler sees one device kernel, the GEMM's, and no cast or fill."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = mlperf_tiny_networks()["DAE"]
+    cm = lower(dispatch(g, "gap9", budget=300))
+    dev_params = params_to_torch(init_graph_params(g), cuda)
+    segments = [ls for ls in cm.segments if ls.route == "pallas_gemm"]
+    assert len(segments) == 10
+    for ls in segments:
+        sp = ls.params_slice(dev_params)
+        k = sp[ls.segment.anchor.name]["w"].shape[1]
+        x = torch.from_numpy(np.random.default_rng(k).integers(-128, 128, (M, k)).astype(np.float32)).to(cuda)
+        ls.fn(sp, x)
+        torch.cuda.synchronize()
+        before = matmul_requant.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ls.fn(sp, x)
+            torch.cuda.synchronize()
+        assert matmul_requant.launches == before + 1
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(names) == 1 and "matmul_requant" in names[0], names
+
+
+@pytest.mark.parametrize("memory", ["xla", "arena"])
+def test_dae_aot_replay_bit_exact_with_exact_launches(cuda, memory):
+    from repro_torch.backend import compile_aot
+
+    g = mlperf_tiny_networks()["DAE"]
+    params = init_graph_params(g)
+    rng = np.random.default_rng(4)
+    xs = [{k: rng.integers(-128, 128, s).astype(np.float32) for k, s in g.inputs.items()} for _ in range(3)]
+    cpu_params = params_to_torch(params, "cpu")
+    refs = [execute_graph(g, cpu_params, x, device="cpu") for x in xs]
+    for tgt in ("gap9", "diana"):
+        cm = lower(dispatch(g, tgt, budget=300))
+        am = compile_aot(cm, memory=memory)
+        am.warmup(params, xs[0])
+        before = matmul_requant.launches
+        outs = [am.run(params, x) for x in xs]
+        torch.cuda.synchronize()
+        assert matmul_requant.launches - before == cm.routes()["pallas_gemm"] * len(xs)
+        for out, ref in zip(outs, refs):
+            for k in ref:
+                assert torch.equal(out[k].cpu(), ref[k]), (tgt, k)
 
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
