@@ -89,7 +89,32 @@ failure:
    per second, p50/p99 latency, capture ms per batch shape, the SLO
    verdict (which must be ok) and the serving thread's host ms per batch
    by step (launch, wait on the batch's event, resolve, the rest);
-7. LM parity: qwen2.5-3b, granite-moe-3b-a800m and mamba2-1.3b at full
+7. ``[calibrate]``, the calibration loop on the card's own target:
+   ``repro_torch.calibrate.run_microbench("h100", repeats=3)`` over the
+   full sweep (9 generated conv, dwconv and dense graphs x the full
+   target, ``cuda_core`` alone, ``tensor_core`` alone and the ``aten``
+   fallback alone; CUDA events around each segment's eager call), a
+   least-squares fit per module (``fit_profile``), the samples and the
+   profile saved under ``build/calibration/`` and the profile loaded back
+   with the same fingerprint; per module its samples, coefficients, MAE
+   before and after (cycles and µs; the fit must lower it) and the median
+   measured/predicted before and after, then the medians by module and
+   route and the spread between the two measurements of a segment swept
+   in two variants on one module; then the four nets on h100 under the declared and the fitted
+   model: segments per module, the anchors that change module or route,
+   conv bands per request, eager and AOT ``xla`` ms per request (median
+   of 5), each bit-exact with the CPU interpreter;
+8. ``[fuzz]``, the differential fuzzer on the card: seeds 0-23 x {h100,
+   gap9} through ``repro_torch.fuzz.check_case`` with the full battery
+   on every seed (one ``SchedulePlanner`` per target), then the corpus
+   cases of ``tests/conformance/corpus/`` replayed with the full battery
+   on their own targets (read only): every compiled path on the card
+   (``CompiledModel.run``, AOT, ``PipelinedModel.run`` and
+   ``run_stream``, ``BatchedModel``) bit-exact with the CPU interpreter;
+   the invariant coverage, the failures (any fails the phase), the
+   seconds, the GEMM launches and the distinct (M, K, N) of the GEMM
+   segments reached, with how many have K or N not divisible by 4;
+9. LM parity: qwen2.5-3b, granite-moe-3b-a800m and mamba2-1.3b at full
    width, 2 layers, float32, a 16-token prefill, and recurrentgemma-2b at
    full width, 3 layers (rglru, rglru, local_attn), float32, a 2048-token
    prefill that fills its local-attention ring, with RG-LRU decays drawn
@@ -97,7 +122,7 @@ failure:
    steps (recurrentgemma's wrap the ring) on the card (the kernels, decode
    by the serving engine's captured CUDA graph) against the same module on
    the CPU (plain versions), logits within 1e-3 and identical tokens;
-8. bf16 LM check of the kernels: qwen2.5-3b, granite-moe-3b-a800m and
+10. bf16 LM check of the kernels: qwen2.5-3b, granite-moe-3b-a800m and
    mamba2-1.3b at full width, 2 layers, a (4, 512) prefill, and
    recurrentgemma-2b, 3 layers, a (2, 4096) prefill (the window of 2048
    bites), three prompt batches each, bf16 on the card, against the same
@@ -116,14 +141,14 @@ failure:
    largest |logit| or within the model's floor where that is larger (the
    gap that rounding the plain flash's output toward zero makes); greedy
    agreement and the gap with each run routing itself printed;
-9. ``[prefill-long]``: one 4096-token prompt through full-depth bf16
+11. ``[prefill-long]``: one 4096-token prompt through full-depth bf16
    ``LM.prefill`` of qwen2.5-3b, mamba2-1.3b and recurrentgemma-2b
    (``max_len`` 4096): host ms (median of 3 after a warm-up), exact
    launch counts (one flash per attention layer, one ssd_scan per ssd
    layer, one rglru_scan per rglru layer), and for each kernel of the
    prefill its device ms per counted call and its device kernels by
    ``torch.profiler``;
-10. LM serve path: ``repro_torch.launch.serve``'s engine on qwen2.5-3b (36
+12. LM serve path: ``repro_torch.launch.serve``'s engine on qwen2.5-3b (36
    layers), granite-moe-3b-a800m (32), mamba2-1.3b (48) and
    recurrentgemma-2b (26), each at full width and depth (bf16, weights
    from a generator seeded 0), 6 requests, 12 new tokens each, greedy,
@@ -138,12 +163,13 @@ failure:
    and no launch of a kernel off the path; capture ms per graph; decode ms
    per step and tok/s of each mode (median over runs 2-4); then a
    profiler breakdown of a decode step, eager and by replay;
-11. one JSON line of per-kernel numbers, the card line, and last the
+13. one JSON line of per-kernel numbers, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 ``--only`` is a development aid: it runs the named phases of ``gemm``
-and ``kernels`` (3), ``cnn`` (4), ``pipeline`` (5), ``cnn-serve`` (6), ``lm`` (7),
-``lm-bf16`` (8), ``prefill-long`` (9) and ``serve`` (10), after the card
+and ``kernels`` (3), ``cnn`` (4), ``pipeline`` (5), ``cnn-serve`` (6),
+``calibrate`` (7), ``fuzz`` (8), ``lm`` (9), ``lm-bf16`` (10),
+``prefill-long`` (11) and ``serve`` (12), after the card
 line and the build, and prints neither the
 JSON line nor the ``ok`` line, so it never stands in for a full run.
 ``--src DIR`` drives the ``repro_torch`` package under DIR instead of this
@@ -176,7 +202,8 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
-PHASES = ("gemm", "kernels", "cnn", "pipeline", "cnn-serve", "lm", "lm-bf16", "prefill-long", "serve")
+PHASES = ("gemm", "kernels", "cnn", "pipeline", "cnn-serve", "calibrate", "fuzz", "lm", "lm-bf16", "prefill-long",
+          "serve")
 CHECKOUT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 
 
@@ -231,7 +258,7 @@ from repro_torch.obs import SloSpec  # noqa: E402
 from repro_torch.pipeline import PipelinedModel  # noqa: E402
 from repro_torch.serve import ModelServer  # noqa: E402
 from repro_torch.serving import ServeEngine  # noqa: E402
-from repro_torch.targets import register_h100_target  # noqa: E402
+from repro_torch.targets import get_target, register_h100_target  # noqa: E402
 
 DEV = torch.device("cuda")
 # the GEMM's module; its segment entry exists from the redesign on (None
@@ -250,6 +277,9 @@ PIPE_INPUTS, PIPE_DEPTH, PIPE_REPEATS = 12, 3, 5
 SERVE_NETS = ("DAE", "DSCNN")
 SERVE_TARGETS = ("gap9", "ne16_octa", "h100")
 SERVE_N, SERVE_BATCH, SERVE_DEPTH, SERVE_OFFERED_X = 96, 16, 2, 6.0
+# [fuzz]: generated graphs, full battery on every seed, on these targets
+FUZZ_SEEDS = 24
+FUZZ_TARGETS = ("h100", "gap9")
 KERNELS = ("matmul_requant", "flash_attention", "moe_gmm", "ssd_scan", "rglru_scan")
 # every source built: the five kernels and an empty kernel, the card's launch floor
 SOURCES = KERNELS + ("launch_floor",)
@@ -853,6 +883,16 @@ def print_replay_kernels(where: str, run, gemm_segments: int, calls: int = 10) -
     return {"kernels": total, "gemm_launches": counted, "by_name": kern}
 
 
+def net_request(g, seed: int = 0) -> dict:
+    return {k: np.random.default_rng(seed).integers(-128, 128, s).astype(np.float32) for k, s in g.inputs.items()}
+
+
+def bands_of(cm) -> int:
+    """F.conv2d calls per request: one per output band of each conv segment."""
+    return sum(-(-int(ls.segment.anchor.attr("OY", 1) or 1) // ls.meta["block_oy"])
+               for ls in cm.segments if ls.route == "tiled_conv")
+
+
 def phase_cnn_path() -> dict:
     """4 nets x 3 targets (gap9, diana and the card's own h100) through
     dispatch -> lower -> run on the card, then through the whole-graph AOT
@@ -863,11 +903,7 @@ def phase_cnn_path() -> dict:
         g = nets[net]
         params = init_graph_params(g)
         cpu_params = params_to_torch(params, "cpu")
-        requests = [
-            {k: np.random.default_rng(seed).integers(-128, 128, s).astype(np.float32)
-             for k, s in g.inputs.items()}
-            for seed in range(REQUESTS)
-        ]
+        requests = [net_request(g, seed) for seed in range(REQUESTS)]
         refs = [execute_graph(g, cpu_params, x, device="cpu") for x in requests]
         for tgt in TARGETS:
             t0 = time.perf_counter()
@@ -876,11 +912,7 @@ def phase_cnn_path() -> dict:
             compile_s = time.perf_counter() - t0
             dev_params = params_to_torch(params, cm.device)
             gemm_segments = cm.routes().get("pallas_gemm", 0)
-            # F.conv2d calls per request: one per output band of each conv segment
-            bands = sum(
-                -(-int(ls.segment.anchor.attr("OY", 1) or 1) // ls.meta["block_oy"])
-                for ls in cm.segments if ls.route == "tiled_conv"
-            )
+            bands = bands_of(cm)
             # the main path: counts from 0 just before, read just after
             reset_counts()
             outs, req_ms = [], []
@@ -947,9 +979,9 @@ def phase_cnn_path() -> dict:
                 print(cm.report())
             if tgt == "h100":
                 print_h100_timings(cm, dev_params, requests[0])
-    bands_of = {(c["net"], c["target"]): c["bands"] for c in cells}
+    bands_by = {(c["net"], c["target"]): c["bands"] for c in cells}
     print("[cnn] conv bands per request (F.conv2d calls), h100 against gap9: "
-          + "; ".join(f"{net} {bands_of[net, 'h100']}/{bands_of[net, 'gap9']}" for net in NETS))
+          + "; ".join(f"{net} {bands_by[net, 'h100']}/{bands_by[net, 'gap9']}" for net in NETS))
     print("[cnn] ms per request, eager / AOT xla / AOT arena: "
           + "; ".join(f"{c['net']}x{c['target']} {c['eager_ms']:.3f} / {c['aot_xla_ms']:.3f} / {c['aot_arena_ms']:.3f}"
                       for c in cells))
@@ -1154,6 +1186,188 @@ def phase_cnn_serve() -> dict:
                     raise AssertionError(f"[cnn-serve] {net}x{tgt} {mode}: the generous SLOs breached")
             cells.append(cell)
     return {"cells": cells, "launches": sum(c[m]["launches"] for c in cells for m in ("aot", "pipeline"))}
+
+
+def calibrated_net(g, target, params: dict, x: dict, ref: dict, where: str) -> dict:
+    """One net on ``target``: segments per module, the (module, route) of each
+    segment anchor, conv bands per request, eager and AOT xla ms per request
+    (median of 5 after a warm-up), both bit-exact with the CPU interpreter."""
+    cm = lower(dispatch(g, target, budget=300))
+    dev_params = params_to_torch(params, cm.device)
+    check_outputs(f"{where} eager", [cm.run(dev_params, x)], [ref])
+    am = compile_aot(cm, memory="xla")
+    am.warmup(params, x)
+    check_outputs(f"{where} AOT xla", [am.run(params, x)], [ref])
+    eager_ms, _ = host_ms(lambda: cm.run(dev_params, x))
+    aot_ms, _ = host_ms(lambda: am.run(params, x))
+    modules: dict[str, int] = {}
+    for ls in cm.segments:
+        modules[ls.module] = modules.get(ls.module, 0) + 1
+    return {"modules": modules, "anchors": {ls.segment.anchor.name: (ls.module, ls.route) for ls in cm.segments},
+            "segments": len(cm.segments), "bands": bands_of(cm), "eager_ms": eager_ms, "aot_xla_ms": aot_ms,
+            "predicted_cycles": cm.predicted_cycles()}
+
+
+def phase_calibrate() -> dict:
+    """The calibration loop on the card's own target: the full microbench
+    sweep (9 graphs x {h100, cuda_core, tensor_core, aten only}, 3 timed
+    repeats) on the card, a least-squares fit per module, the profile saved
+    under build/ and loaded back; then the four nets on h100 under the
+    declared and the fitted model."""
+    # imported here: a --src tree from before the calibration loop still runs the other phases
+    from repro_torch.calibrate import (
+        default_sweep, fit_profile, load_profile, run_microbench, save_samples, unsampled_modules,
+    )
+
+    t0 = time.perf_counter()
+    reset_counts()
+    declared = get_target("h100", profile=None)
+    samples = run_microbench("h100", repeats=3)  # default device: the card
+    sweep_s = time.perf_counter() - t0
+    unsampled = unsampled_modules(declared, samples)
+    profile = fit_profile(samples, target_name="h100",
+                          meta={"source": "chip_smoke.py [calibrate]", "card": card_line(),
+                                "declared_as_is": unsampled})
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "calibration")
+    save_samples(os.path.join(out_dir, "h100_samples.json"), samples, target="h100", meta={"repeats": 3})
+    path = os.path.join(out_dir, "h100_profile.json")
+    profile.save(path)
+    loaded = load_profile(path)
+    if loaded is None or loaded.tag() != profile.tag():
+        raise AssertionError(f"[calibrate] the saved profile {path} does not load back as {profile.tag()}")
+    print(f"[calibrate] h100: {len(samples)} samples from {len(default_sweep())} graphs x "
+          f"{len(declared.modules) + 2} variants in {sweep_s:.1f} s (CUDA events around each eager segment, "
+          f"min of 3); profile {profile.tag()} -> {path}; no samples, left as declared: {unsampled}")
+    for name, mc in sorted(profile.modules.items()):
+        group = [s for s in samples if s.module == name]
+        y = np.array([s.measured_cycles for s in group])
+        before = np.median(y / np.array([s.predicted_cycles for s in group]))
+        after = np.median(y / np.array([mc.predict_cycles(s.l_ops, s.l_mem, s.async_dma) for s in group]))
+        f = group[0].frequency_hz
+        kept = " (the fit would raise the MAE: declared model kept)" if mc.is_identity() else ""
+        print(f"[calibrate] {name:9s}: {mc.samples:3d} samples ({'async, one scale' if group[0].async_dma else 'sync'}); "
+              f"compute_scale {mc.compute_scale:.6g}, mem_scale {mc.mem_scale:.6g}, fixed_overhead_cycles "
+              f"{mc.fixed_overhead_cycles:.6g} ({mc.fixed_overhead_cycles / f * 1e6:.3f} us); MAE cycles "
+              f"{mc.mae_before:.1f} -> {mc.mae_after:.1f} (us {mc.mae_before / f * 1e6:.3f} -> "
+              f"{mc.mae_after / f * 1e6:.3f}); median measured/predicted {before:.3f} -> {after:.3f}{kept}")
+        if not mc.mae_after < mc.mae_before:
+            raise AssertionError(f"[calibrate] {name}: the fit did not lower the MAE ({mc.mae_before} -> {mc.mae_after})")
+    print("[calibrate] by module and route (medians, us): measured, the declared model's prediction, the fitted one's")
+    groups: dict[tuple, list] = {}
+    for smp in samples:
+        groups.setdefault((smp.module, smp.route), []).append(smp)
+    for (name, route), group in sorted(groups.items()):
+        mc = profile.modules[name]
+        f = group[0].frequency_hz / 1e6
+        med = lambda v: float(np.median(v))  # noqa: E731
+        print(f"    {name:9s} {route:11s} {len(group):3d} samples: measured {med([g.measured_us for g in group]):9.2f}, "
+              f"declared {med([g.predicted_cycles for g in group]) / f:7.2f}, fitted "
+              f"{med([mc.predict_cycles(g.l_ops, g.l_mem, g.async_dma) for g in group]) / f:9.2f}")
+    # a segment swept in two variants on the same module is measured twice:
+    # the spread between the two is the measurement's own noise
+    seen: dict[tuple, list[float]] = {}
+    for smp in samples:
+        seen.setdefault((smp.graph, smp.segment, smp.module, smp.route), []).append(smp.measured_us)
+    spread = sorted(max(v) / min(v) for v in seen.values() if len(v) > 1)
+    if spread:
+        print(f"[calibrate] the same segment measured in two variants: {len(spread)} pairs, max/min median "
+              f"{np.median(spread):.2f}, largest {spread[-1]:.2f}")
+    fitted = get_target("h100", profile=profile)
+    nets = mlperf_tiny_networks()
+    for net in NETS:
+        g = nets[net]
+        params = init_graph_params(g)
+        x = net_request(g)
+        ref = execute_graph(g, params_to_torch(params, "cpu"), x, device="cpu")
+        d = calibrated_net(g, declared, params, x, ref, f"[calibrate] {net} declared")
+        c = calibrated_net(g, fitted, params, x, ref, f"[calibrate] {net} fitted")
+        moved: dict[str, list[str]] = {}
+        for a, was in d["anchors"].items():
+            now = c["anchors"].get(a, was)
+            if now != was:
+                moved.setdefault(f"{'/'.join(was)} -> {'/'.join(now)}", []).append(a)
+        print(f"[calibrate] {net:9s} x h100 declared / fitted: segments {d['segments']} / {c['segments']}, by module "
+              f"{d['modules']} / {c['modules']}; conv bands per request {d['bands']} / {c['bands']}; ms per request "
+              f"eager {d['eager_ms']:.3f} / {c['eager_ms']:.3f}, AOT xla {d['aot_xla_ms']:.3f} / {c['aot_xla_ms']:.3f} "
+              f"(median of 5); predicted cycles {d['predicted_cycles']:.0f} / {c['predicted_cycles']:.0f}; bit-exact "
+              f"with the CPU interpreter under both; anchors moved: "
+              + ("; ".join(f"{k} x{len(v)} ({' '.join(v)})" for k, v in moved.items()) or "none"))
+    counts = read_counts()
+    check_counts("[calibrate]", counts, {**dict.fromkeys(counts, 0), "matmul_requant": counts["matmul_requant"]})
+    if counts["matmul_requant"] == 0:
+        raise AssertionError("[calibrate] no matmul_requant launch: the dense sweep missed the GEMM")
+    print(f"[calibrate] {time.perf_counter() - t0:.1f} s in all; matmul_requant launches {counts['matmul_requant']}")
+    return {"launches": counts["matmul_requant"]}
+
+
+@contextlib.contextmanager
+def recorded_gemm_shapes(sink: set):
+    """Record the (M, K, N) of every GEMM segment call the lowering makes
+    (the kernel's own wrapper, and so its count, untouched)."""
+    lower_mod = importlib.import_module("repro_torch.backend.lower")
+    entry = lower_mod.matmul_requant_f32
+
+    def record(a, w, bias, **kw):
+        sink.add((int(a.shape[0]), int(a.shape[1]), int(w.shape[0])))
+        return entry(a, w, bias, **kw)
+
+    lower_mod.matmul_requant_f32 = record
+    try:
+        yield
+    finally:
+        lower_mod.matmul_requant_f32 = entry
+
+
+def phase_fuzz() -> dict:
+    """The differential fuzzer on the card: seeds 0-23 x {h100, gap9} with
+    the full battery on every seed (one SchedulePlanner per target), then
+    the shipped corpus cases replayed with the full battery on their own
+    targets; every compiled path on the card against the CPU interpreter."""
+    from repro_torch.core import SchedulePlanner
+    from repro_torch.fuzz import INVARIANTS, check_case, load_cases, replay_case, sample_spec
+
+    t0 = time.perf_counter()
+    reset_counts()
+    planners = {t: SchedulePlanner() for t in FUZZ_TARGETS}
+    coverage = dict.fromkeys(INVARIANTS, 0)
+    failures, shapes = [], set()
+    cases = 0
+    with recorded_gemm_shapes(shapes):
+        for seed in range(FUZZ_SEEDS):
+            spec = sample_spec(seed)
+            for tgt in FUZZ_TARGETS:
+                rep = check_case(spec, tgt, io_seed=seed, budget=120, planner=planners[tgt])
+                cases += 1
+                for iv in rep.invariants_checked:
+                    coverage[iv] += 1
+                failures += [(f"seed {seed}", f) for f in rep.failures]
+        corpus = load_cases(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "conformance", "corpus"))
+        if not corpus:
+            raise AssertionError("[fuzz] no corpus case found under tests/conformance/corpus")
+        for path, case in corpus:
+            rep = replay_case(case, budget=120, full_battery=True)
+            cases += 1
+            for iv in rep.invariants_checked:
+                coverage[iv] += 1
+            failures += [(os.path.basename(path), f) for f in rep.failures]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    seconds = time.perf_counter() - t0
+    odd = sorted(s for s in shapes if s[1] % 4 or s[2] % 4)
+    print(f"[fuzz] seeds 0-{FUZZ_SEEDS - 1} x {', '.join(FUZZ_TARGETS)} and {len(corpus)} corpus cases "
+          f"({', '.join(c['target'] for _, c in corpus)}), full battery on the card: {cases} cases in {seconds:.1f} s; "
+          "invariant coverage " + " ".join(f"{iv}={n}" for iv, n in coverage.items())
+          + f"; failures {len(failures)}; matmul_requant launches {counts['matmul_requant']}")
+    print(f"[fuzz] GEMM segment (M, K, N) reached: {len(shapes)} distinct, {len(odd)} with K or N not divisible by 4: "
+          + " ".join(f"{m}x{k}x{n}" for m, k, n in sorted(shapes)))
+    for where, f in failures:
+        print(f"[fuzz] FAIL {where} target={f.target} invariant={f.invariant} stage={f.stage}: {f.message}")
+    check_counts("[fuzz]", counts, {**dict.fromkeys(counts, 0), "matmul_requant": counts["matmul_requant"]})
+    if failures:
+        raise AssertionError(f"[fuzz] {len(failures)} failures")
+    if counts["matmul_requant"] == 0:
+        raise AssertionError("[fuzz] no matmul_requant launch: the fuzz graphs' dense heads missed the GEMM")
+    return {"launches": counts["matmul_requant"]}
 
 
 def off_by_one(x: torch.Tensor) -> torch.Tensor:
@@ -2319,6 +2533,10 @@ def main() -> None:
         pipe = phase_pipeline()
     if "cnn-serve" in only:
         cnn_serve = phase_cnn_serve()
+    if "calibrate" in only:
+        calib = phase_calibrate()
+    if "fuzz" in only:
+        fuzz = phase_fuzz()
     draw = lambda lm: draw_rglru_decays(lm, seed=1)  # noqa: E731
     if "lm" in only:
         for arch in (LM_ARCH, MOE_ARCH, SSD_ARCH):
@@ -2353,6 +2571,7 @@ def main() -> None:
                      launch_floor_ms=big["launch_floor_ms"],
                      launch_floor_1x32_ms=gemm["launch_floor_ms"], launches_aot=cnn["launches_aot"],
                      launches_pipeline=pipe["launches"], launches_cnn_serve=cnn_serve["launches"],
+                     launches_calibrate=calib["launches"], launches_fuzz=fuzz["launches"],
                      served_shapes=[{k: r[k] for k in rowkeys} for r in gemm["segment_served_rows"]],
                      int8_entry_shapes=[{k: r[k] for k in rowkeys} for r in gemm["rows"] + gemm["served_rows"]],
                      segments=[{k: r[k] for k in ("segment", "shape", "ms", "kernels", "device_us")}

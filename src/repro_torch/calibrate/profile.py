@@ -4,8 +4,8 @@ A :class:`CalibrationProfile` is the artifact the measure → fit → re-rank
 loop produces: per-execution-module overrides for the abstract hardware
 model — an effective compute scale (rescaling macs/cycle constants), a
 memory scale (rescaling per-level bandwidths + chunk overheads) and a
-fixed per-segment overhead — solved by the reference's fitter
-(``repro.calibrate.fit``, not ported yet) from microbench measurements.
+fixed per-segment overhead — solved by :mod:`repro_torch.calibrate.fit`
+from :mod:`repro_torch.calibrate.microbench` measurements.
 
 Profiles persist as versioned JSON (``{"version": N, ...}``) with the
 same warn-and-fallback hardening as the schedule cache: a corrupt,

@@ -31,9 +31,9 @@ The package is stdlib-only at import time: ``repro_torch.core`` and
 would cycle.  Anything needing repo types (``trace_predicted_schedule``)
 is duck-typed instead.
 
-The artifacts are the reference's formats: its CLI (``python -m
-repro.obs summarize|drift|slo|flight``) reads them; the port has no CLI
-of its own yet.
+The artifacts are the reference's formats.  CLI: ``python -m
+repro_torch.obs summarize <trace.json>`` / ``drift <report.json>`` /
+``slo <report.json>`` / ``flight <incident.json>``.
 """
 
 from __future__ import annotations

@@ -135,8 +135,7 @@ def observe_timings(target_name: str, timings) -> int:
             f"cost-model drift on {target_name}/{module}: measured/predicted "
             f"geomean {g.geomean():.2f}x over {g.count} segments exceeds "
             f"threshold {threshold:g}x — consider re-fitting a calibration "
-            f"profile (the port has no calibration loop yet; the reference's "
-            f"is python -m repro.calibrate sweep/fit)",
+            f"profile (python -m repro_torch.calibrate sweep/fit)",
             CalibrationDriftWarning,
             stacklevel=3,
             logger="drift",

@@ -39,7 +39,10 @@ assert {"repro_torch.backend.lower", "repro_torch.kernels.matmul_requant",
         "repro_torch.models.ssd", "repro_torch.models.rglru",
         "repro_torch.kernels.rglru_scan", "repro_torch.pipeline.runtime",
         "repro_torch.serve.queue", "repro_torch.serve.batching", "repro_torch.serve.engine",
-        "repro_torch.targets.h100", "repro_torch.targets.tpu_v5e"} <= set(names)
+        "repro_torch.targets.h100", "repro_torch.targets.tpu_v5e",
+        "repro_torch.calibrate.fit", "repro_torch.calibrate.microbench", "repro_torch.calibrate.__main__",
+        "repro_torch.fuzz.generate", "repro_torch.fuzz.oracle", "repro_torch.fuzz.corpus",
+        "repro_torch.fuzz.shrink", "repro_torch.fuzz.__main__", "repro_torch.obs.__main__"} <= set(names)
 """
 
 # the entry points, imported in a fresh interpreter
@@ -47,7 +50,8 @@ _ENTRY_PROBE = """
 import sys
 import repro_torch.models, repro_torch.serving, repro_torch.launch.serve
 import repro_torch.configs, repro_torch.pipeline, repro_torch.calibrate
-import repro_torch.serve, repro_torch.targets.h100
+import repro_torch.serve, repro_torch.targets.h100, repro_torch.fuzz
+import repro_torch.calibrate.__main__, repro_torch.fuzz.__main__, repro_torch.obs.__main__
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
 """
