@@ -163,13 +163,43 @@ failure:
    and no launch of a kernel off the path; capture ms per graph; decode ms
    per step and tok/s of each mode (median over runs 2-4); then a
    profiler breakdown of a decode step, eager and by replay;
-13. one JSON line of per-kernel numbers, the card line, and last the
-   ``{"ok": true, "device": ...}`` line.
+13. ``[train]``: training on the card.  Each LM kernel's
+   ``autograd.Function`` (the kernel forward, its explicit ``*_backward``)
+   against ``torch.autograd.grad`` of its plain version on the card
+   (flash causal, windowed, non-causal, GQA, Sq != Sk with ``q_offset``;
+   ``moe_gmm`` at granite-moe's wi and wo; both scans at T = 128, 512
+   and a ragged T with slow decays; then every family's training shapes),
+   within 1e-4 of the largest |plain gradient| in f32 and 2e-2 in bf16
+   (``ssd_scan``'s f32 xb and a 2e-4); each backward's times at its
+   training shape beside the plain version's forward + backward, SDPA's
+   forward + backward (flash) or two ``torch.bmm`` (``moe_gmm``), and its
+   bound; ``LM.loss`` and every parameter's gradient, fp32, batch 2 x 128,
+   on the card and on the CPU against the same weights in float64, the
+   card within max(1e-3, 3x the CPU's own gap) of each leaf's largest
+   |gradient|, every gradient nonzero on the card wherever the CPU's is,
+   launches exact, for qwen2.5-3b, granite-moe (routing replayed from the
+   CPU run), mamba2, hubert (2 layers), recurrentgemma (3, decays drawn)
+   and qwen2-vl (M-RoPE positions, embeds) at full width, and qwen2.5-3b
+   once more with wq and wk scaled so the softmax is not saturated, the
+   card within a flat 1e-3 of the CPU; qwen2.5-3b and
+   mamba2-1.3b at full width and depth through
+   ``repro_torch.launch.train.main`` (bf16, batch 8, seq 128, remat
+   ``full``, 10 steps): ms per step, tokens/s, MFU, peak memory against
+   16 bytes per parameter, exact launches and backward calls per step,
+   losses and grad norms, and one profiled step split into forward,
+   backward and optimizer; 8 steps of qwen2.5-3b on one fixed batch, the
+   loss falling; and on mamba2's smoke config a run stopped after step 4
+   by its ``PreemptionGuard`` and resumed from its checkpoint giving the
+   uninterrupted run's losses, the checkpoint restoring through the
+   reference format into ``params_from_jax``;
+14. one JSON line of per-kernel numbers (each LM kernel with its
+   training launches and its backward's times), the card line, and last
+   the ``{"ok": true, "device": ...}`` line.
 
 ``--only`` is a development aid: it runs the named phases of ``gemm``
 and ``kernels`` (3), ``cnn`` (4), ``pipeline`` (5), ``cnn-serve`` (6),
 ``calibrate`` (7), ``fuzz`` (8), ``lm`` (9), ``lm-bf16`` (10),
-``prefill-long`` (11) and ``serve`` (12), after the card
+``prefill-long`` (11), ``serve`` (12) and ``train`` (13), after the card
 line and the build, and prints neither the
 JSON line nor the ``ok`` line, so it never stands in for a full run.
 ``--src DIR`` drives the ``repro_torch`` package under DIR instead of this
@@ -203,7 +233,7 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
 PHASES = ("gemm", "kernels", "cnn", "pipeline", "cnn-serve", "calibrate", "fuzz", "lm", "lm-bf16", "prefill-long",
-          "serve")
+          "serve", "train")
 CHECKOUT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 
 
@@ -240,12 +270,16 @@ from repro_torch.cnn import (  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import dispatch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_plain,
+)
 from repro_torch.kernels.matmul_requant import matmul_requant, matmul_requant_plain  # noqa: E402
-from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain  # noqa: E402
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_backward, moe_gmm_plain  # noqa: E402
 from repro_torch.kernels.ref import rglru_scan_ref, ssd_scan_ref  # noqa: E402
-from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_backward, rglru_scan_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_backward, ssd_scan_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
@@ -2475,6 +2509,644 @@ def phase_serve(arch: str) -> dict:
             "decode_ms": per_step, "tok_s": tok_s, "breakdown": {"eager": eager_b, "graph": graph_b}}
 
 
+# ---------------------------------------------------------------------------
+# [train]: the kernels' backwards, LM.loss gradients and training on the card
+# ---------------------------------------------------------------------------
+
+BACKWARDS = (flash_attention_backward, moe_gmm_backward, ssd_scan_backward, rglru_scan_backward)
+# [train]: gradient limits of each kernel's autograd.Function against
+# autograd of its plain version, of the largest |plain gradient|
+TRAIN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 10  # the reference driver's defaults, 10 steps
+TRAIN_ARCHS = (LM_ARCH, SSD_ARCH)
+# [train] card-against-CPU gradients: (arch, layers) at full width, batch 2, seq 128
+GRAD_FAMILIES = ((LM_ARCH, 2), (MOE_ARCH, 2), (SSD_ARCH, 2), ("hubert_xlarge", 2), (RG_ARCH, 3), ("qwen2_vl_2b", 2))
+
+
+def reset_backward_calls() -> None:
+    for fn in BACKWARDS:
+        fn.calls = 0
+
+
+def backward_calls() -> dict[str, int]:
+    return {fn.__name__: fn.calls for fn in BACKWARDS}
+
+
+def grads_of(fn, inputs: list, douts: list) -> tuple[tuple, list]:
+    """(outputs, gradients) of ``fn`` on fresh leaves copied from ``inputs``,
+    against the output gradients ``douts`` (None: that output unused);
+    zeros for an input the outputs do not reach."""
+    inputs = [x.detach().clone().requires_grad_(True) for x in inputs]
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    pairs = [(o, d) for o, d in zip(outs, douts) if d is not None]
+    grads = torch.autograd.grad([o for o, _ in pairs], inputs, [d for _, d in pairs], allow_unused=True)
+    return outs, [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+
+
+def check_function(label: str, kernel, plain, inputs: list, douts: list, tol: dict, worst: dict) -> float:
+    """``kernel`` under autograd (its Function: the kernel forward, the
+    explicit backward) against ``torch.autograd.grad`` of ``plain`` on the
+    same inputs, on the card: each input's gradient (in the input's dtype,
+    as both return it) within ``tol[its dtype]`` of the largest |plain
+    gradient|, and the output's grad_fn the Function's."""
+    outs, got = grads_of(kernel, inputs, douts)
+    name = type(outs[0].grad_fn).__name__
+    if not name.startswith("_") or not name.endswith("Backward"):
+        raise AssertionError(f"[train] {label}: output grad_fn {name}, not the kernel's autograd.Function")
+    _, want = grads_of(plain, inputs, douts)
+    torch.cuda.synchronize()
+    key = label.split(" ")[0]
+    r = 0.0
+    for x, g, w in zip(inputs, got, want):
+        ri = float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30))
+        if not ri <= tol[x.dtype]:
+            raise AssertionError(f"[train] {label}: max |grad - plain grad| / max |plain grad| = {ri:.3g} beyond "
+                                 f"{tol[x.dtype]} ({x.dtype} input {tuple(x.shape)})")
+        r = max(r, ri)
+    worst[key] = max(worst.get(key, 0.0), r)
+    return r
+
+
+def family_train_shapes() -> dict[str, list]:
+    """Each kernel's shapes in a training step of every family at the
+    driver's batch and sequence (8, 128), in the model's working dtypes."""
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    shapes: dict[str, list] = {"flash": [], "moe_gmm": [], "ssd": [], "rglru": []}
+    for arch in ("qwen2_5_3b", MOE_ARCH, RG_ARCH, "qwen2_vl_2b", "hubert_xlarge"):
+        cfg = get_config(arch)
+        window = cfg.local_window if "local_attn" in cfg.block_types else None
+        shapes["flash"].append((arch, (B, cfg.n_heads, cfg.kv_heads, S, S, cfg.head_dim_, cfg.causal, 0, window)))
+    cfg = get_config(MOE_ARCH)
+    C = B * moe_mod.moe_capacity(cfg, S)
+    shapes["moe_gmm"] += [(f"{MOE_ARCH} wi", (cfg.n_experts, C, cfg.d_model, cfg.moe_d_ff)),
+                          (f"{MOE_ARCH} wo", (cfg.n_experts, C, cfg.moe_d_ff, cfg.d_model))]
+    cfg = get_config(SSD_ARCH)
+    shapes["ssd"].append((SSD_ARCH, (B, cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, S, cfg.ssm_head_dim,
+                                     cfg.ssm_state)))
+    shapes["rglru"].append((RG_ARCH, (B, S, get_config(RG_ARCH).lru_width)))
+    return shapes
+
+
+def phase_train_backward() -> dict:
+    """Each LM kernel's autograd.Function on the card against autograd of its
+    plain version: flash causal, windowed, non-causal, GQA, Sq != Sk with
+    ``q_offset`` (f32 and bf16); moe_gmm at granite-moe's wi and wo (f32,
+    bf16); both scans at T = 128, 512 and a ragged T with slow decays
+    (ssd_scan with a gradient of h_final too); then every family's training
+    shapes in its working dtypes."""
+    t0 = time.perf_counter()
+    worst: dict[str, float] = {}
+    n = 0
+    flash_cases = [("causal", (2, 4, 2, 64, 64, 32, True, 0, None)),
+                   ("windowed", (1, 4, 1, 96, 96, 16, True, 0, 24)),
+                   ("non-causal", (2, 4, 4, 40, 40, 16, False, 0, None)),
+                   ("gqa", (1, 16, 2, 128, 128, 128, True, 0, None)),
+                   ("sq!=sk", (2, 4, 2, 24, 64, 16, True, 40, None))]
+    cfg = get_config(MOE_ARCH)
+    gmm_cases = [("wi", (cfg.n_experts, 32, cfg.d_model, cfg.moe_d_ff)),
+                 ("wo", (cfg.n_experts, 32, cfg.moe_d_ff, cfg.d_model))]
+    dtypes = (torch.float32, torch.bfloat16)
+    train = family_train_shapes()
+    for dtype, (label, case) in [(d, c) for d in dtypes for c in flash_cases] + [
+            (torch.bfloat16, (arch, case)) for arch, case in train["flash"]]:
+        B, H, KV, Sq, Sk, D, causal, off, win = case
+        q, k, v = flash_operands(B, H, KV, Sq, Sk, D, dtype, seed=Sq + Sk, bshd=True)
+        do = torch.randn(q.shape, generator=torch.Generator(DEV).manual_seed(n), device=DEV).to(dtype)
+        kw = dict(causal=causal, q_offset=off, window=win)
+        check_function(f"flash {label} {tuple(case[:6])} {str(dtype)[6:]}", lambda q, k, v: flash_attention(q, k, v, **kw),
+                       lambda q, k, v: flash_attention_plain(q, k, v, **kw), [q, k, v], [do], TRAIN_GRAD_TOL, worst)
+        n += 1
+    for dtype, (label, (E, C, D, F_)) in [(d, c) for d in dtypes for c in gmm_cases] + [
+            (torch.bfloat16, c) for c in train["moe_gmm"]]:
+        x, w = gmm_operands(E, C, D, F_, dtype, seed=D)
+        dy = torch.randn((E, C, F_), generator=torch.Generator(DEV).manual_seed(n), device=DEV).to(dtype)
+        check_function(f"moe_gmm {label} {(E, C, D, F_)} {str(dtype)[6:]}", moe_gmm, moe_gmm_plain, [x, w], [dy],
+                       TRAIN_GRAD_TOL, worst)
+        n += 1
+    W = get_config(RG_ARCH).lru_width
+    for label, (B, T, W_) in [("T128", (2, 128, W)), ("T512", (1, 512, W)), ("ragged", (3, 37, 45))] + train["rglru"]:
+        a, b = rglru_operands(B, T, W_, torch.float32, seed=T, lo=0.9)
+        dh = torch.randn(a.shape, generator=torch.Generator(DEV).manual_seed(n), device=DEV)
+        check_function(f"rglru_scan {label} {(B, T, W_)}", rglru_scan, rglru_scan_plain, [a, b], [dh],
+                       TRAIN_GRAD_TOL, worst)
+        n += 1
+    cfg = get_config(SSD_ARCH)
+    H, P, N = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+    for label, (B, H_, T, P_, N_), decay in [("T128", (2, 8, 128, P, N), 0.002), ("T512", (1, 8, 512, P, N), 0.002),
+                                             ("ragged", (2, 4, 300, P, N), 0.02)] + [
+            (lab, s, 0.2) for lab, s in train["ssd"]]:
+        xb, a, Bm, Cm = ssd_operands(B, H_, T, P_, N_, torch.bfloat16, seed=T, decay=decay)
+        g = torch.Generator(DEV).manual_seed(n)
+        dy = torch.randn(xb.shape, generator=g, device=DEV)
+        dh = torch.randn((B, H_, P_, N_), generator=g, device=DEV)
+        # xb and a (f32): ssd_scan's own limit, its grid's 2e-4 of the
+        # forward; B and C (bf16, as the model passes them): bf16's
+        check_function(f"ssd_scan {label} {(B, H_, T, P_, N_)}", ssd_scan, ssd_scan_plain, [xb, a, Bm, Cm], [dy, dh],
+                       {**TRAIN_GRAD_TOL, torch.float32: SSD_TOL}, worst)
+        n += 1
+    print(f"[train] backward of each kernel's autograd.Function on the card against torch.autograd.grad of its plain "
+          f"version ({n} cases: flash causal, windowed, non-causal, GQA 16/2, Sq != Sk with q_offset, f32 and bf16; "
+          f"moe_gmm granite wi/wo f32 and bf16; rglru_scan and ssd_scan T = 128, 512, ragged, slow decays, ssd with "
+          f"dh_final; every family's training shapes at ({TRAIN_BATCH}, {TRAIN_SEQ}) in bf16): max |grad - plain| / "
+          f"max |plain| " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (limits f32 {TRAIN_GRAD_TOL[torch.float32]:g}, bf16 {TRAIN_GRAD_TOL[torch.bfloat16]:g}, ssd_scan's "
+            f"f32 xb and a {SSD_TOL:g}); {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def phase_train_backward_timing() -> dict[str, dict]:
+    """Each backward at its main model's training shape, ms: the explicit
+    ``*_backward`` alone; the kernel forward + backward through its
+    Function and the plain version's forward + autograd backward; the
+    library, timed only: SDPA forward + backward (flash) against the
+    kernel's forward + backward, two ``torch.bmm`` (``moe_gmm``'s dx and
+    dw) against the backward alone.  Each as device time in a CUDA graph
+    (the autograd backward captured with its forward) and, for the forward
+    + backward pairs, launched from Python (CUDA events, host cost
+    included); the bound of the backward's own work."""
+    out = {}
+    train = family_train_shapes()
+
+    def both(name, fn, inputs, douts, iters):
+        call = lambda: grads_of(fn, inputs, douts)  # noqa: E731
+        return {f"{name}_ms": graph_ms(call, iters), f"{name}_eager_ms": eager_ms(call, iters)}
+
+    B, H, KV, Sq, Sk, D, causal, _, _ = train["flash"][0][1]
+    q, k, v = flash_operands(B, H, KV, Sq, Sk, D, torch.bfloat16, seed=1, bshd=True)
+    do = torch.randn(q.shape, device=DEV).to(torch.bfloat16)
+    pairs = Sq * (Sq + 1) // 2
+    sdpa = both("library", lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+                [q, k, v], [do], 20)
+    out["flash_attention"] = {
+        "shape": [B, H, KV, Sq, D],
+        "ms": graph_ms(lambda: flash_attention_backward(q, k, v, do, causal=True), 20),
+        **both("fwd_bwd", lambda q, k, v: flash_attention(q, k, v, causal=True), [q, k, v], [do], 20),
+        **both("plain", lambda q, k, v: flash_attention_plain(q, k, v, causal=True), [q, k, v], [do], 20),
+        **sdpa,
+        # q, k, v, dO read and dq, dk, dv written once (bf16); five products
+        # (S, dP, dQ, dK, dV) of 2 D flops per kept (query, key) pair
+        "bound": bound(2 * (3 * B * H * Sq * D + 2 * B * KV * Sk * D + 2 * B * KV * Sk * D),
+                       5 * 2 * B * H * pairs * D, BF16_FLOPS_S),
+    }
+    (_, (E, C, D, F_)) = train["moe_gmm"][0]
+    x, w = gmm_operands(E, C, D, F_, torch.bfloat16, seed=3)
+    dy = torch.randn((E, C, F_), device=DEV).to(torch.bfloat16)
+    wt, xt = w.transpose(1, 2), x.transpose(1, 2)
+    out["moe_gmm"] = {
+        "shape": [E, C, D, F_],
+        "ms": graph_ms(lambda: moe_gmm_backward(x, w, dy), 50),
+        **both("fwd_bwd", moe_gmm, [x, w], [dy], 50),
+        **both("plain", moe_gmm_plain, [x, w], [dy], 50),
+        "library_ms": graph_ms(lambda: (torch.bmm(dy, wt), torch.bmm(xt, dy)), 50),
+        # x, w, dy read, dx, dw written (bf16); two GEMMs of 2 E C D F flops
+        "bound": bound(2 * (2 * E * C * D + 2 * E * D * F_ + E * C * F_), 2 * 2 * E * C * D * F_, BF16_FLOPS_S),
+    }
+    (_, (B, H, T, P, N)) = train["ssd"][0]
+    xb, a, Bm, Cm = ssd_operands(B, H, T, P, N, torch.bfloat16, seed=5)
+    dy, dh = torch.randn(xb.shape, device=DEV), torch.randn((B, H, P, N), device=DEV)
+    out["ssd_scan"] = {
+        "shape": [B, H, T, P, N],
+        "ms": graph_ms(lambda: ssd_scan_backward(xb, a, Bm, Cm, dy, dh), 20),
+        **both("fwd_bwd", ssd_scan, [xb, a, Bm, Cm], [dy, dh], 20),
+        **both("plain", ssd_scan_plain, [xb, a, Bm, Cm], [dy, dh], 20),
+        "library_ms": None,
+        # xb, a, dy, dh read and dxb, da in f32, B, C and dB, dC in bf16,
+        # each once; the recurrence's adjoint at 16 P N flops per token and
+        # head (h recomputed, dh carried, dxb, dB, dC, da), fp32
+        "bound": bound(4 * (2 * 2 * B * H * T * P + 2 * B * H * T + B * H * P * N) + 2 * 4 * B * T * N,
+                       16 * B * H * T * P * N, FP32_FLOPS_S),
+    }
+    (_, (B, T, W)) = train["rglru"][0]
+    a, b = rglru_operands(B, T, W, torch.float32, seed=7, lo=0.9)
+    dh = torch.randn(a.shape, device=DEV)
+    h = rglru_scan(a, b)
+    out["rglru_scan"] = {
+        "shape": [B, T, W],
+        "ms": graph_ms(lambda: rglru_scan_backward(a, h, dh), 50),
+        **both("fwd_bwd", rglru_scan, [a, b], [dh], 50),
+        **both("plain", rglru_scan_plain, [a, b], [dh], 2),
+        "library_ms": None,
+        # a, h, dh read and da, db written once, f32; 4 flops an element
+        "bound": bound(20 * B * T * W, 4 * B * T * W, FP32_FLOPS_S),
+    }
+    print(f"[train] backward times at each kernel's training shape (batch {TRAIN_BATCH}, seq {TRAIN_SEQ}; flash "
+          f"qwen2.5-3b bf16 causal, moe_gmm granite-moe wi bf16, ssd_scan mamba2-1.3b, rglru_scan recurrentgemma-2b), "
+          f"ms: backward = the explicit *_backward alone (device, CUDA graph); fwd+bwd = the kernel forward and that "
+          f"backward through its Function, plain = the plain version's forward + autograd backward, library = SDPA "
+          f"forward + backward (flash) or two torch.bmm (moe_gmm dx, dw), timed only; each of those as device ms "
+          f"in a CUDA graph / ms launched from Python (CUDA events); bound = the backward's own bytes or operations")
+
+    def pair(row, name):
+        if row.get(f"{name}_ms") is None:
+            return "none"
+        eager = row.get(f"{name}_eager_ms")
+        return f"{row[f'{name}_ms']:.5f}" + ("" if eager is None else f" / {eager:.5f}")
+
+    for name, row in out.items():
+        row["bound_ms"], row["bound_by"] = row.pop("bound")
+        print(f"    {name:15s} {str(row['shape']):24s} backward {row['ms']:.5f}  fwd+bwd {pair(row, 'fwd_bwd')}  "
+              f"plain {pair(row, 'plain')}  library {pair(row, 'library')}  bound {row['bound_ms']:.6f} "
+              f"({row['bound_by']})")
+    return out
+
+
+def grad_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """A CPU batch: tokens, or frame/patch embeddings for a stub frontend
+    (with M-RoPE, three distinct position streams), and labels."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend_stub:
+        batch = {"embeds": torch.from_numpy(rng.standard_normal((B, S, cfg.d_model)).astype(np.float32))}
+        if cfg.pos_kind == "mrope":
+            batch["positions"] = torch.from_numpy(rng.integers(0, 4 * S, (3, B, S)))
+    else:
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))}
+    batch["labels"] = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+    return batch
+
+
+def loss_and_grads(lm, batch: dict) -> tuple[float, dict[str, torch.Tensor | None]]:
+    params = dict(lm.named_parameters())
+    lm.requires_grad_(True)
+    loss = lm.loss(batch)
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    lm.requires_grad_(False)
+    return float(loss.detach()), dict(zip(params, grads))
+
+
+@torch.no_grad()
+def unsaturate_attention(lm) -> float:
+    """Scale every attention layer's wq and wk in place so that, for a
+    unit-RMS input, q and k have unit entries and the logits q.k/sqrt(hd)
+    are about N(0, 1).  At the reference init (std 1/sqrt(layers), the
+    fan-in taken from the stacked layer axis) the logits at full width are
+    in the hundreds, the softmax is one-hot, and the score gradient dS is
+    rounding; here it is not.  Returns the scale applied to wq."""
+    d = lm.cfg.d_model
+    applied = 1.0
+    for name, p in lm.named_parameters():
+        if name.endswith(("attn.wq", "attn.wk")):
+            s = 1.0 / (float(p.std()) * d ** 0.5)
+            p.mul_(s)
+            if name.endswith("wq"):
+                applied = s
+    return applied
+
+
+def phase_train_grads(arch: str, n_layers: int, unsaturated: bool = False) -> dict:
+    """``LM.loss`` and every parameter's gradient of ``arch`` at full width,
+    ``n_layers`` layers, batch 2, seq 128: the module in fp32 on the card
+    (the kernels' Functions) and on the CPU (plain versions), each against
+    the same weights in a float64 module on the CPU (``dtype="float64"``:
+    the port computes in float64 where its inputs are; the truth both
+    round from).  Per leaf, of its largest |float64 gradient|: the card
+    within 1e-3, or within 3x the CPU's own fp32 gap where that is larger
+    (at the reference init some leaves' gradients cancel so far that two
+    correct fp32 evaluations differ by more than 1e-3: measured 1.5e-2
+    for granite-moe's wk and 8.9e-4 for qwen's embedding, CPU fp32 against
+    float64).  With ``unsaturated`` (wq and wk scaled by
+    :func:`unsaturate_attention`, so the score gradient carries signal) the
+    card is held to the CPU within a flat 1e-3 of each leaf's largest |CPU
+    gradient|.  Every gradient nonzero on the card wherever the CPU's is;
+    the loss within 1e-5; the card's kernel launches and backward calls
+    exactly those of one step at remat "none".  MoE routing in the float64
+    run and on the card replays the CPU fp32 run's (a near-tie would flip
+    an expert)."""
+    cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32", remat="none")
+    t0 = time.perf_counter()
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    if "rglru" in cfg.block_types:
+        draw_rglru_decays(cpu, seed=1)
+    wq_scale = unsaturate_attention(cpu) if unsaturated else None
+    gpu = copy.deepcopy(cpu).to(DEV)
+    # the float64 module, built by its config; its float32-declared leaves
+    # (the norms) made float64 too, then every weight copied from the cpu's
+    cpu64 = LM(cfg.replace(dtype="float64"), device="cpu").double()
+    cpu64.load_state_dict(cpu.state_dict())
+    batch = grad_batch(cfg, 2, TRAIN_SEQ, seed=0)
+    routes: list = []
+    with routing(record=routes):
+        want_loss, want = loss_and_grads(cpu, batch)
+    with routing(replay=routes) if cfg.is_moe else contextlib.nullcontext():
+        truth_loss, truth = loss_and_grads(cpu64, {k: v.double() if v.is_floating_point() else v
+                                                   for k, v in batch.items()})
+    del cpu64
+    routes = [r.to(DEV) for r in routes]
+    reset_counts()
+    reset_backward_calls()
+    with routing(replay=routes) if cfg.is_moe else contextlib.nullcontext():
+        got_loss, got = loss_and_grads(gpu, {k: v.to(DEV) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    counts, calls = read_counts(), backward_calls()
+    want_l, want_c = expected_train_counts(cfg, 1)
+    check_counts(f"train grads {arch}", counts, want_l)
+    if calls != want_c:
+        raise AssertionError(f"train grads {arch}: backward calls {calls}, expected {want_c}")
+    unreached, worst, worst_cpu, gap = [], (0.0, ""), 0.0, (0.0, "")
+    for name, g_cpu in want.items():
+        g_gpu, g64 = got[name], truth[name]
+        if g_cpu is None or not bool(g_cpu.any()):
+            unreached.append(name)
+            if g_gpu is not None and bool(g_gpu.any()):
+                raise AssertionError(f"[train] {arch} {name}: a gradient on the card where the CPU has none")
+            continue
+        if g_gpu is None or not bool(g_gpu.any()):
+            raise AssertionError(f"[train] {arch} {name}: no gradient on the card (the CPU's max |g| "
+                                 f"{float(g_cpu.abs().max()):.3e})")
+        scale = float(g64.abs().max())
+        r_cpu = float((g_cpu.double() - g64).abs().max()) / scale
+        r = float((g_gpu.cpu().double() - g64).abs().max()) / scale
+        r_gap = float((g_gpu.cpu() - g_cpu).abs().max() / g_cpu.abs().max())
+        worst, worst_cpu, gap = max(worst, (r, name)), max(worst_cpu, r_cpu), max(gap, (r_gap, name))
+        if unsaturated:
+            if r_gap > 1e-3:
+                raise AssertionError(f"[train] {arch} unsaturated {name}: card vs cpu gradient gap {r_gap:.3g} of "
+                                     f"its max beyond 1e-3 (card vs float64 {r:.3g}, cpu vs float64 {r_cpu:.3g})")
+        elif r > max(1e-3, 3 * r_cpu):
+            raise AssertionError(f"[train] {arch} {name}: card vs float64 gradient gap {r:.3g} of its max beyond "
+                                 f"{max(1e-3, 3 * r_cpu):.3g} (the cpu's fp32 gap {r_cpu:.3g})")
+    if abs(got_loss - truth_loss) > 1e-5 * abs(truth_loss):
+        raise AssertionError(f"[train] {arch}: loss {got_loss} on the card vs {truth_loss} in float64")
+    limit = ("card vs cpu within a flat 1e-3" if unsaturated else "card vs float64 within max(1e-3, 3x the cpu's)")
+    print(f"[train] {cfg.name} full width x {n_layers} layers fp32, batch 2 x {TRAIN_SEQ}"
+          + (" (embeds" + (", M-RoPE positions" if cfg.pos_kind == "mrope" else "") + ")" if cfg.frontend_stub else "")
+          + (", MoE routing replayed from the cpu fp32 run" if cfg.is_moe else "")
+          + (f", unsaturated attention (wq, wk scaled for N(0, 1) logits; wq x {wq_scale:.3e})" if unsaturated else "")
+          + f": loss card {got_loss:.6f}, cpu {want_loss:.6f}, float64 {truth_loss:.6f}; "
+          f"{len(want) - len(unreached)} parameters, every gradient nonzero on the card; per leaf, of its max "
+          f"|gradient|: card vs float64 at most {worst[0]:.3e} ({worst[1]}), cpu fp32 vs float64 at most "
+          f"{worst_cpu:.3e}, card vs cpu at most {gap[0]:.3e} ({gap[1]}); held: {limit}"
+          + (f"; not reached by the loss on either: {unreached}" if unreached else "")
+          + f"; kernel launches {counts}, backward calls {calls} (exact); {time.perf_counter() - t0:.1f} s")
+    del cpu, gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"card_vs_f64": worst[0], "cpu_vs_f64": worst_cpu, "card_vs_cpu": gap[0], "launches": counts,
+            "backward_calls": calls}
+
+
+def expected_train_counts(cfg, steps: int) -> tuple[dict[str, int], dict[str, int]]:
+    """(kernel launches, backward calls) of ``steps`` train steps: each
+    kernel's forward once per layer, twice under remat (the backward
+    recomputes the layer), its backward once per layer; moe_gmm three
+    forwards per MoE layer and two launches per backward (dx, dw),
+    rglru_scan one launch per backward."""
+    n = layer_kinds(cfg)
+    f = 2 if cfg.remat != "none" else 1
+    launches = {"matmul_requant": 0, "flash_attention": f * n["attn"] * steps,
+                "moe_gmm": (3 * f + 6) * n["moe"] * steps, "ssd_scan": f * n["ssd"] * steps,
+                "rglru_scan": (f + 1) * n["rglru"] * steps}
+    calls = {"flash_attention_backward": n["attn"] * steps, "moe_gmm_backward": 3 * n["moe"] * steps,
+             "ssd_scan_backward": n["ssd"] * steps, "rglru_scan_backward": n["rglru"] * steps}
+    return launches, calls
+
+
+def profiled_train_step(model, opt_state, opt_cfg, batch: dict) -> dict:
+    """One train step of ``model`` as the port's ``make_train_step`` takes it
+    (``LM.loss``, ``torch.autograd.grad``, ``adamw_update``), with a
+    ``torch.cuda.synchronize()`` after each phase, under ``torch.profiler``:
+    device busy and idle, and device ms and top device ops of each phase."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.training.optimizer import adamw_update
+
+    params = dict(model.named_parameters())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function("phase.forward"):
+            loss = model.loss(batch)
+            torch.cuda.synchronize()
+        with record_function("phase.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            torch.cuda.synchronize()
+        with record_function("phase.optimizer"):
+            adamw_update(dict(zip(params, grads)), opt_state, params, opt_cfg)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = list(prof.events())
+    ranges = {e.name[6:]: (e.time_range.start, e.time_range.end) for e in events
+              if e.name.startswith("phase.") and e.device_type == DeviceType.CPU}
+    by_phase: dict[str, dict[str, list[float]]] = {p: {} for p in ranges}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("phase."):
+            phase = next((p for p, (s, t) in ranges.items() if s <= e.time_range.start < t), "outside")
+            by_phase.setdefault(phase, {}).setdefault(kernel_label(e.name), []).append(e.time_range.elapsed_us())
+    busy = {p: sum(sum(v) for v in ops.values()) / 1e3 for p, ops in by_phase.items()}
+    phase_ms = {p: (t - s) / 1e3 for p, (s, t) in ranges.items()}
+    total_busy = sum(busy.values())
+    if not total_busy:
+        return {"wall_ms": wall_ms, "busy_ms": None, "lines": [f"wall {wall_ms:.1f} ms; device time not measured "
+                                                                "(the profiler recorded no CUDA events)"]}
+    lines = [f"wall {wall_ms:.1f} ms, device busy {total_busy:.1f} ms, idle {100 * (1 - total_busy / wall_ms):.1f} %"]
+    for p, ops in by_phase.items():
+        top = sorted(ops.items(), key=lambda kv: -sum(kv[1]))[:5]
+        lines.append(f"{p}: {phase_ms.get(p, float('nan')):.1f} ms host, {busy[p]:.1f} ms device in "
+                     f"{sum(len(v) for v in ops.values())} ops; top " +
+                     ", ".join(f"{name} x{len(us)} {sum(us) / 1e3:.2f}" for name, us in top))
+    return {"wall_ms": wall_ms, "busy_ms": total_busy, "phase_ms": phase_ms, "phase_busy_ms": busy, "lines": lines}
+
+
+def phase_train_full(arch: str) -> dict:
+    """``repro_torch.launch.train.main`` on ``arch`` at full width and depth,
+    bf16, the reference's defaults (batch 8, seq 128, remat "full"), 10
+    steps: ms per step (median of steps 3-10), tokens/s, MFU (6 N tokens
+    per step over 989 TFLOP/s), peak device memory against 16 bytes per
+    parameter, exact launches and backward calls per step, first and last
+    loss and grad norm; then a profiled step of a second model built the
+    same way, split into forward, backward and optimizer."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training import OptConfig, adamw_init, make_train_step
+
+    cfg = get_config(arch)
+    stamps, norms = [], []
+
+    def on_step(step, metrics):
+        stamps.append(time.perf_counter())
+        norms.append(float(metrics["grad_norm"]))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    reset_backward_calls()
+    res = train_cli.main(["--arch", arch, "--steps", str(TRAIN_STEPS), "--log-every", "5"], on_step=on_step)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts, calls = read_counts(), backward_calls()
+    want_l, want_c = expected_train_counts(cfg, TRAIN_STEPS)
+    check_counts(f"train {arch}", counts, want_l)
+    if calls != want_c:
+        raise AssertionError(f"train {arch}: backward calls {calls}, expected {want_c}")
+    if res["final_step"] != TRAIN_STEPS or not all(np.isfinite([res["first_loss"], res["final_loss"]] + norms)):
+        raise AssertionError(f"train {arch}: {res}, grad norms {norms}")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]  # steps 2..10
+    med = float(np.median(step_ms[1:]))  # steps 3..10
+    n_params = cfg.n_params()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n_params * tokens / (med / 1e3) / BF16_FLOPS_S
+    reckoned = 16 * n_params / 1e9
+    print(f"[train] {cfg.name} full width x {cfg.n_layers} layers bf16 ({n_params / 1e9:.3f} B params), batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, remat {cfg.remat}, {TRAIN_STEPS} steps through repro_torch.launch.train: "
+          f"ms per step median of steps 3-{TRAIN_STEPS} {med:.1f} (steps 2-{TRAIN_STEPS}: "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)}), {tokens / med * 1e3:.0f} tokens/s, MFU {100 * mfu:.2f} % "
+          f"(6 N tokens / step s / 989 TFLOP/s); peak allocated {peak_gb:.2f} GB against 16 B per parameter "
+          f"{reckoned:.2f} GB; launches per step {({k: v // TRAIN_STEPS for k, v in counts.items()})}, backward "
+          f"calls per step {({k: v // TRAIN_STEPS for k, v in calls.items()})} (exact: remat full runs each forward "
+          f"twice); loss first {res['first_loss']:.4f} last {res['final_loss']:.4f}, grad norm first {norms[0]:.3f} "
+          f"last {norms[-1]:.3f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a profiled step of the same model, built the same way
+    model = LM(cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(0))
+    opt_cfg = OptConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+    step = make_train_step(model, opt_cfg)
+    opt = adamw_init(dict(model.named_parameters()))
+    batch = {k: v.to(DEV) for k, v in grad_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=1).items()}
+    for _ in range(2):
+        opt, m = step(opt, batch)
+    float(m["loss"])
+    prof = profiled_train_step(model, opt, opt_cfg, batch)
+    print(f"[train] {cfg.name} one profiled step (torch.profiler, a synchronize after each phase): "
+          + "; ".join(prof["lines"]))
+    del model, opt, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": counts, "step_ms": med, "tokens_s": tokens / med * 1e3, "mfu": mfu, "peak_gb": peak_gb, "reckoned_gb": reckoned,
+            "launches_per_step": {k: v // TRAIN_STEPS for k, v in counts.items()},
+            "backward_calls_per_step": {k: v // TRAIN_STEPS for k, v in calls.items()},
+            "first_loss": res["first_loss"], "final_loss": res["final_loss"], "grad_norm": norms,
+            "profile": {k: v for k, v in prof.items() if k != "lines"}}
+
+
+def phase_train_fixed_batch() -> dict:
+    """``test_quickstart_flow`` on the card at full width: qwen2.5-3b, bf16,
+    8 steps of ``make_train_step`` on one fixed batch (4, 32) at lr 1e-3
+    (warm-up 2, 20 total): the loss must fall."""
+    from repro_torch.training import OptConfig, adamw_init, make_train_step
+
+    cfg = get_config(LM_ARCH)
+    model = LM(cfg, device=DEV, generator=torch.Generator(device=DEV).manual_seed(0))
+    step = make_train_step(model, OptConfig(lr=1e-3, warmup_steps=2, total_steps=20))
+    opt = adamw_init(dict(model.named_parameters()))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 32))).to(DEV) for k in ("tokens", "labels")}
+    losses = []
+    for _ in range(8):
+        opt, m = step(opt, batch)
+        losses.append(float(m["loss"]))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train fixed batch {cfg.name}: loss did not fall: {losses}")
+    print(f"[train] {cfg.name} full width bf16, 8 steps on one fixed batch (4, 32) at lr 1e-3: loss "
+          f"{', '.join(f'{x:.4f}' for x in losses)} (falls)")
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses}
+
+
+def phase_train_resume() -> dict:
+    """The train driver on the card on mamba2's smoke config: 6 steps with a
+    checkpoint every 3, and the same run stopped after step 4 through its
+    ``PreemptionGuard`` (checkpointing there) and resumed: steps 4-6 give
+    the uninterrupted run's losses.  Then the checkpoint's parameters,
+    restored through the port's copy of the reference format, load into a
+    new module through ``params_from_jax`` equal to the trained module's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import params_from_jax, params_to_jax
+    from repro_torch.training.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.training.fault_tolerance import PreemptionGuard
+    from repro_torch.training.train_loop import state_like
+
+    build = os.path.join(os.path.dirname(CHECKOUT_SRC), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_resume_", dir=build)
+    argv = ["--arch", SSD_ARCH, "--smoke", "--steps", "6", "--batch", "2", "--seq", "32", "--ckpt-every", "3",
+            "--log-every", "100"]
+
+    def losses_of(args, guard=None, stop_at=None):
+        out = {}
+
+        def on_step(step, metrics):
+            out[step] = float(metrics["loss"])
+            if step == stop_at:
+                guard.request_stop()
+
+        train_cli.main(args, guard=guard, on_step=on_step)
+        return out
+
+    try:
+        whole = losses_of(argv + ["--ckpt-dir", os.path.join(root, "whole")])
+        cut = os.path.join(root, "cut")
+        first = losses_of(argv + ["--ckpt-dir", cut], guard=PreemptionGuard(signals=()), stop_at=4)
+        if latest_step(cut) != 4:
+            raise AssertionError(f"train resume: the stopped run checkpointed step {latest_step(cut)}, not 4")
+        rest = losses_of(argv + ["--ckpt-dir", cut])
+        got = {**first, **rest}
+        gap = max(abs(got[s] - whole[s]) for s in range(1, 7))
+        if sorted(got) != list(range(1, 7)) or gap > 1e-6 * max(abs(v) for v in whole.values()):
+            raise AssertionError(f"train resume: losses {got} vs uninterrupted {whole}")
+        # the resumed run's last checkpoint, through the reference format, into params_from_jax and back
+        lm = LM(get_smoke(SSD_ARCH), device=DEV, generator=torch.Generator(device=DEV).manual_seed(5))
+        tree = restore_checkpoint(cut, 6, state_like(lm))
+        want = _numpy_tree(tree["params"])
+        back = params_to_jax(params_from_jax(lm, want))
+        for path, leaf in _leaves(want):
+            if not np.array_equal(_at(back, path), leaf):
+                raise AssertionError(f"train resume: {'/'.join(path)} through params_from_jax / params_to_jax differs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[train] {SSD_ARCH} smoke on the card, 6 steps, checkpoint every 3: stopped after step 4 by its "
+          f"PreemptionGuard, resumed from the step-4 checkpoint; losses steps 1-6 "
+          f"{', '.join(f'{got[s]:.6f}' for s in range(1, 7))} vs uninterrupted "
+          f"{', '.join(f'{whole[s]:.6f}' for s in range(1, 7))} (max gap {gap:.3e}, "
+          f"{'bitwise equal' if gap == 0 else 'within 1e-6'}); the resumed run's step-6 checkpoint restores through "
+          f"the reference format into params_from_jax, and params_to_jax gives back every leaf exactly")
+    return {"gap": gap}
+
+
+def _leaves(tree, prefix=()):
+    if not isinstance(tree, dict):
+        yield prefix, tree
+        return
+    for k, v in tree.items():
+        yield from _leaves(v, (*prefix, k))
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.float().numpy() if tree.dtype == torch.bfloat16 else tree.numpy()
+
+
+def phase_train() -> dict:
+    """[train]: the backwards, their times, six families' gradients, full-width
+    training of qwen2.5-3b and mamba2-1.3b through the driver, the fixed-batch
+    check and checkpoint/resume.  ``launches_full`` sums each kernel's
+    launches over the full-width runs (the main path), ``launches_grads``
+    over the gradient checks."""
+    out: dict = {"backward": phase_train_backward(), "timing": phase_train_backward_timing()}
+    out["grads"] = {arch: phase_train_grads(arch, n) for arch, n in GRAD_FAMILIES}
+    out["grads"][f"{LM_ARCH}/unsaturated"] = phase_train_grads(LM_ARCH, 2, unsaturated=True)
+    out["full"] = {arch: phase_train_full(arch) for arch in TRAIN_ARCHS}
+    out["fixed"] = phase_train_fixed_batch()
+    out["resume"] = phase_train_resume()
+    for run in ("full", "grads"):
+        out[f"launches_{run}"] = {k: sum(r["launches"].get(k, 0) for r in out[run].values()) for k in REPLACES}
+    return out
+
+
 # the Pallas kernel body each CUDA kernel replaces
 REPLACES = {
     "matmul_requant": "src/repro/kernels/matmul_requant.py:45",
@@ -2554,6 +3226,8 @@ def main() -> None:
         longs = {arch: phase_prefill_long(arch) for arch in (LM_ARCH, SSD_ARCH, RG_ARCH)}
     if "serve" in only:
         served = {arch: phase_serve(arch) for arch in (LM_ARCH, MOE_ARCH, SSD_ARCH, RG_ARCH)}
+    if "train" in only:
+        trained = phase_train()
     if only != set(PHASES):
         print(f"[only] {', '.join(ARGS.only)} passed; no JSON lines without every phase")
         return
@@ -2589,6 +3263,11 @@ def main() -> None:
         kernel_entry("rglru_scan", served[RG_ARCH]["launches"]["rglru_scan"], rglru, rglru_rows[0],
                      prefill_shapes=shapes(rglru_rows), prefill_long=longs[RG_ARCH]["kernels"]["rglru_scan"]),
     ]
+    for e in entries:  # the training path: forward and backward launches, each backward's times
+        e["launches_train"] = trained["launches_full"][e["name"]]
+        e["launches_train_grads"] = trained["launches_grads"][e["name"]]
+        if e["name"] in trained["timing"]:
+            e["backward"] = trained["timing"][e["name"]]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "to_tensor"]
+__all__ = ["resolve_device", "to_tensor", "upcast"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -53,3 +53,10 @@ def to_tensor(v, device: torch.device, dtype: torch.dtype | None = None) -> torc
     if dtype is None:
         dtype = _NARROW.get(v.dtype, v.dtype)
     return v.to(device=device, dtype=dtype)
+
+
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype the port computes in: float32, or float64 where
+    ``x`` is float64, so that a float64 module (a numerical oracle for the
+    float32 one) stays in float64 throughout."""
+    return x if x.dtype == torch.float64 else x.float()

@@ -35,6 +35,13 @@ reads every operand through its strides, so the model passes its
 bf16 operands whose rows start on 16 bytes are staged by 16-byte copies,
 others by element loads, in the same kernel.  The output has q's memory
 layout.
+
+Training: under grad, with an input that needs a gradient, a CUDA call
+goes through ``_FlashAttention`` (an ``autograd.Function``: the same
+counted launch forward) whose backward is :func:`flash_attention_backward`,
+the adjoint in torch ops (P recomputed with the kernel's mask, dQ, dK,
+dV); the reference has no backward kernel either.  A CUDA output under
+grad never lacks a grad_fn.
 """
 
 from __future__ import annotations
@@ -45,14 +52,17 @@ import math
 
 import torch
 
+from repro_torch._device import upcast
+
 from . import _build, _layout
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["flash_attention", "flash_attention_backward", "flash_attention_plain"]
 
 _MASKED = -1e30
 _CHUNK = 1024  # the reference model's kv_chunk
 _MAX_D = 256
 _INT_MAX = 2**31 - 1
+_BACKWARD_SCORES = 1 << 25  # fp32 scores of one backward chunk of query rows (128 MB)
 
 
 def _check_args(q, k, v) -> None:
@@ -86,14 +96,14 @@ def flash_attention_plain(
     KV, Sk = k.shape[1], k.shape[2]
     g = H // KV
     scale = 1.0 / math.sqrt(D)
-    qf = (q.float() * scale).reshape(B, KV, g, Sq, D)
+    qf = (upcast(q) * scale).reshape(B, KV, g, Sq, D)
     q_pos = q_offset + torch.arange(Sq, device=q.device)
-    m = torch.full((B, KV, g, Sq), -math.inf, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, KV, g, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KV, g, Sq, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, KV, g, Sq), -math.inf, dtype=qf.dtype, device=q.device)
+    l = torch.zeros((B, KV, g, Sq), dtype=qf.dtype, device=q.device)
+    acc = torch.zeros((B, KV, g, Sq, D), dtype=qf.dtype, device=q.device)
     for c0 in range(0, Sk, _CHUNK):
-        kb = k[:, :, c0 : c0 + _CHUNK].float()
-        vb = v[:, :, c0 : c0 + _CHUNK].float()
+        kb = upcast(k[:, :, c0 : c0 + _CHUNK])
+        vb = upcast(v[:, :, c0 : c0 + _CHUNK])
         k_pos = torch.arange(c0, c0 + kb.shape[2], device=q.device)
         s = torch.einsum("bkgqd,bkcd->bkgqc", qf, kb)
         mask = torch.ones((Sq, kb.shape[2]), dtype=torch.bool, device=q.device)
@@ -134,11 +144,15 @@ def flash_attention(
 
     CUDA tensors launch the Hopper kernel (counted in
     ``flash_attention.launches``); CPU tensors take
-    :func:`flash_attention_plain`.
+    :func:`flash_attention_plain`.  Under grad, with an input that needs a
+    gradient, CUDA tensors go through :class:`_FlashAttention`: the same
+    launch forward, :func:`flash_attention_backward` backward.
     """
     q_offset = int(q_offset)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, q_offset, window)
     _check_args(q, k, v)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(
@@ -183,3 +197,80 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The adjoint of :func:`flash_attention`: ``dout`` (B, H, Sq, D) ->
+    (dq, dk, dv) in q's, k's and v's dtypes, in plain torch ops on any
+    device (no backward kernel: the reference has none either).
+
+    Per chunk of query rows (so that the fp32 (B, H, rows, Sk) scores stay
+    near 128 MB), in fp32: the probabilities P are recomputed with the
+    kernel's own mask (``causal`` from ``q_offset``, ``window``, masked
+    scores -1e30, so a row with no valid key attends uniformly, as the
+    kernel's does); dP = dO·Vᵀ; dS = P∘(dP − D) with D = rowsum(P∘dP),
+    which is rowsum(dO∘O) for the exact O, and 0 at masked scores; dQ = dS·K·scale, dK = dSᵀ·Q·scale,
+    dV = Pᵀ·dO, each query head's dK and dV summed into its GQA group's K/V
+    head.  Counted in ``flash_attention_backward.calls``."""
+    _check_args(q, k, v)
+    flash_attention_backward.calls += 1
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qs = (q.float() * scale).reshape(B, KV, g, Sq, D)
+    do = dout.float().reshape(B, KV, g, Sq, D)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty_like(qs)
+    dk = torch.zeros((B, KV, Sk, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    k_pos = torch.arange(Sk, device=q.device)
+    rows = max(1, _BACKWARD_SCORES // max(B * H * Sk, 1))
+    for r0 in range(0, Sq, rows):
+        qc, doc = qs[:, :, :, r0 : r0 + rows], do[:, :, :, r0 : r0 + rows]
+        q_pos = q_offset + torch.arange(r0, r0 + qc.shape[3], device=q.device)
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qc, kf)
+        mask = torch.ones((qc.shape[3], Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= q_pos[:, None] - k_pos[None, :] < window
+        p = torch.softmax(torch.where(mask, s, torch.full_like(s, _MASKED)), dim=-1)
+        dp = torch.einsum("bkgqd,bkcd->bkgqc", doc, vf)
+        # a masked score is a constant: no gradient (a row with no valid key
+        # attends uniformly, and its P would pass one on)
+        ds = torch.where(mask, p * (dp - (p * dp).sum(dim=-1, keepdim=True)), 0.0)
+        dq[:, :, :, r0 : r0 + rows] = torch.einsum("bkgqc,bkcd->bkgqd", ds, kf) * scale
+        dk += torch.einsum("bkgqc,bkgqd->bkcd", ds, qc)
+        dv += torch.einsum("bkgqc,bkgqd->bkcd", p, doc)
+    return dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+flash_attention_backward.calls = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward (counted, unchanged) under autograd, with
+    :func:`flash_attention_backward` as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, q_offset, window)
+        return flash_attention(q, k, v, causal=causal, q_offset=q_offset, window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        causal, q_offset, window = ctx.mask
+        dq, dk, dv = flash_attention_backward(q, k, v, dout, causal=causal, q_offset=q_offset, window=window)
+        return dq, dk, dv, None, None, None

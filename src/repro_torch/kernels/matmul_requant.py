@@ -235,11 +235,16 @@ def matmul_requant_f32(
 
     CUDA tensors launch the Hopper kernel (counted in
     ``matmul_requant.launches``); CPU tensors take
-    :func:`matmul_requant_f32_plain`.
+    :func:`matmul_requant_f32_plain`.  The kernel has no backward (the
+    requant is piecewise constant): under grad, with an input that needs a
+    gradient, a CUDA call raises.
     """
     shift = int(shift)
     if x.device.type == "cpu":
         return matmul_requant_f32_plain(x, w, bias, shift=shift, relu=relu, rounding=rounding)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, bias)):
+        # an output without a grad_fn would silently cut the graph
+        raise RuntimeError("matmul_requant_f32 has no backward: call it under torch.no_grad() on the card")
     _check_f32_args(x, w, bias, shift, rounding)
     out = torch.empty((x.shape[0], w.shape[0]), dtype=torch.float32, device=x.device)
     _launch(x, w, None, bias, out, w.stride(0), w.stride(1), shift, rounding, relu, segment=True)

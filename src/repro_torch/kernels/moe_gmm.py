@@ -22,6 +22,11 @@ it leaves for later.  It takes any C, D and F (the Pallas kernel asserts
 exact tiling) and reads x and w through their strides; bf16 operands whose
 rows start on 16 bytes are staged by 16-byte copies, others by element
 loads, in the same kernel.
+
+Training: under grad, with an input that needs a gradient, a CUDA call
+goes through ``_MoeGmm`` (an ``autograd.Function``: the same counted
+launch forward) whose backward, :func:`moe_gmm_backward`, is two more
+launches of this kernel (dx = dy·wᵀ, dw = xᵀ·dy).
 """
 
 from __future__ import annotations
@@ -31,9 +36,11 @@ import functools
 
 import torch
 
+from repro_torch._device import upcast
+
 from . import _build, _layout
 
-__all__ = ["moe_gmm", "moe_gmm_plain"]
+__all__ = ["moe_gmm", "moe_gmm_backward", "moe_gmm_plain"]
 
 _BLOCK_C = 32  # the kernel's rows per block: C must fit 65535 blocks
 _GRID_MAX = 65535
@@ -50,7 +57,7 @@ def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain torch, on any device: the fp32
     einsum ``ecd,edf->ecf``, returned in x's dtype."""
     _check_args(x, w)
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    return torch.einsum("ecd,edf->ecf", upcast(x), upcast(w)).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,10 +73,14 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``y[e] = x[e] @ w[e]``: (E, C, D) x (E, D, F) -> (E, C, F) in x's dtype.
 
     CUDA tensors launch the Hopper kernel (counted in ``moe_gmm.launches``);
-    CPU tensors take :func:`moe_gmm_plain`.
+    CPU tensors take :func:`moe_gmm_plain`.  Under grad, with an input that
+    needs a gradient, CUDA tensors go through :class:`_MoeGmm`: the same
+    launch forward, :func:`moe_gmm_backward` backward.
     """
     if x.device.type == "cpu":
         return moe_gmm_plain(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _MoeGmm.apply(x, w)
     _check_args(x, w)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"moe_gmm needs x and w on one CUDA device, got {x.device}, {w.device}")
@@ -97,3 +108,40 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 moe_gmm.launches = 0
+
+
+def moe_gmm_backward(
+    x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *, need_dx: bool = True, need_dw: bool = True
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The adjoint of :func:`moe_gmm`: ``dy`` (E, C, F) -> (dx (E, C, D),
+    dw (E, D, F)), each in x's dtype, as two more grouped GEMMs through
+    :func:`moe_gmm` itself (the kernel on the card, counted in
+    ``moe_gmm.launches``; the plain version on the CPU): ``dx[e] = dy[e] ·
+    w[e]ᵀ`` and ``dw[e] = x[e]ᵀ · dy[e]``.  The transposed operands are
+    copied to unit stride first (``.contiguous()``), so the kernel stages
+    them by 16-byte copies on its tensor-core path.  Counted in
+    ``moe_gmm_backward.calls``."""
+    _check_args(x, w)
+    moe_gmm_backward.calls += 1
+    dy = dy.to(x.dtype).contiguous()
+    dx = moe_gmm(dy, w.transpose(1, 2).contiguous()) if need_dx else None
+    dw = moe_gmm(x.transpose(1, 2).contiguous(), dy) if need_dw else None
+    return dx, dw
+
+
+moe_gmm_backward.calls = 0
+
+
+class _MoeGmm(torch.autograd.Function):
+    """The kernel's forward (counted, unchanged) under autograd, with
+    :func:`moe_gmm_backward` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return moe_gmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return moe_gmm_backward(x, w, dy, need_dx=ctx.needs_input_grad[0], need_dw=ctx.needs_input_grad[1])

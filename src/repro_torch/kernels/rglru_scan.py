@@ -24,6 +24,11 @@ from 0) pair, then each chunk folds the pairs before it and rescans — two
 device kernels per counted call, one when T fits one chunk; the source
 says how long a chunk is and why.  It takes any T and W (the Pallas kernel
 asserts exact tiling) and reads a and b through their strides.
+
+Training: under grad, with an input that needs a gradient, a CUDA call
+goes through ``_RgLruScan`` (an ``autograd.Function``: the same counted
+launch forward) whose backward, :func:`rglru_scan_backward`, runs this
+kernel once more on the time-reversed adjoint recurrence.
 """
 
 from __future__ import annotations
@@ -33,9 +38,11 @@ import functools
 
 import torch
 
+from repro_torch._device import upcast
+
 from . import _build
 
-__all__ = ["rglru_scan", "rglru_scan_plain"]
+__all__ = ["rglru_scan", "rglru_scan_backward", "rglru_scan_plain"]
 
 _GRID_Y_MAX = 65535
 
@@ -47,16 +54,16 @@ def _check_args(a: torch.Tensor, b: torch.Tensor) -> None:
 
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain torch, on any device: the
-    sequential recurrence in float32, one ``addcmul`` per time step."""
+    sequential recurrence in float32, one ``addcmul`` per time step
+    (autograd follows it)."""
     _check_args(a, b)
-    af, bf = a.float(), b.float()
-    h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    af, bf = upcast(a), upcast(b)
     if a.shape[1] == 0:
-        return h
-    h[:, 0] = bf[:, 0]
+        return torch.empty(a.shape, dtype=af.dtype, device=a.device)
+    hs = [bf[:, 0]]
     for t in range(1, a.shape[1]):
-        torch.addcmul(bf[:, t], af[:, t], h[:, t - 1], out=h[:, t])
-    return h
+        hs.append(torch.addcmul(bf[:, t], af[:, t], hs[-1]))
+    return torch.stack(hs, dim=1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,9 +82,14 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     CUDA tensors launch the Hopper kernels (one or two, counted once in
     ``rglru_scan.launches``); CPU tensors take :func:`rglru_scan_plain`.
+    Under grad, with an input that needs a gradient, CUDA tensors go
+    through :class:`_RgLruScan`: the same launch forward,
+    :func:`rglru_scan_backward` backward.
     """
     if a.device.type == "cpu":
         return rglru_scan_plain(a, b)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _RgLruScan.apply(a, b)
     _check_args(a, b)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"rglru_scan needs a and b on one CUDA device, got {a.device}, {b.device}")
@@ -106,3 +118,44 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 rglru_scan.launches = 0
+
+
+def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The adjoint of :func:`rglru_scan`, given its output ``h``: ``dh`` ->
+    (da, db), float32 (B, T, W).
+
+    The adjoint of ``h_t = a_t h_{t-1} + b_t`` is ``g_t = dh_t + a_{t+1}
+    g_{t+1}`` (``g_{T-1} = dh_{T-1}``): the same recurrence, backwards in
+    time.  So it runs :func:`rglru_scan` itself (the kernel on the card,
+    counted in ``rglru_scan.launches``; the plain version on the CPU) on
+    the time-flipped ``(a shifted one step ahead, dh)``; then ``db = g`` and
+    ``da_t = g_t h_{t-1}``, 0 at t = 0.  Counted in
+    ``rglru_scan_backward.calls``."""
+    _check_args(a, h)
+    rglru_scan_backward.calls += 1
+    af = a.float()
+    a_next = torch.cat([af[:, 1:], af.new_zeros((a.shape[0], min(1, a.shape[1]), a.shape[2]))], dim=1)
+    g = rglru_scan(a_next.flip(1), dh.float().flip(1)).flip(1)
+    h_prev = torch.cat([h.new_zeros((h.shape[0], min(1, h.shape[1]), h.shape[2])), h[:, :-1].float()], dim=1)
+    return g * h_prev, g
+
+
+rglru_scan_backward.calls = 0
+
+
+class _RgLruScan(torch.autograd.Function):
+    """The kernel's forward (counted, unchanged) under autograd, with
+    :func:`rglru_scan_backward` as its backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = rglru_scan(a, b)
+        ctx.save_for_backward(a, h)
+        ctx.b_dtype = b.dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        da, db = rglru_scan_backward(a, h, dh)
+        return da.to(a.dtype), db.to(ctx.b_dtype)

@@ -30,6 +30,12 @@ It takes any T (the Pallas kernel asserts exact tiling) and reads every
 operand through its strides, so the model passes its ``(B, T, H, P)``
 activations as ``(B, H, T, P)`` views without a copy.  y takes xb's
 memory layout.
+
+Training: under grad, with an input that needs a gradient, a CUDA call
+goes through ``_SsdScan`` (an ``autograd.Function``: the same counted
+launch forward) whose backward is :func:`ssd_scan_backward`, the chunked
+algorithm's adjoint in explicit torch ops (the reference has no backward
+kernel either).
 """
 
 from __future__ import annotations
@@ -39,9 +45,11 @@ import functools
 
 import torch
 
+from repro_torch._device import upcast
+
 from . import _build
 
-__all__ = ["heads_per_block", "ssd_scan", "ssd_scan_plain"]
+__all__ = ["heads_per_block", "ssd_scan", "ssd_scan_backward", "ssd_scan_plain"]
 
 _SMEM_MAX = 232448  # shared memory one block may use on an H100 (227 KB)
 _GRID_Y_MAX = 65535
@@ -106,10 +114,10 @@ def ssd_scan_plain(
     L = max(1, min(chunk, T))
     pad = (-T) % L
     nc = (T + pad) // L
-    xf = torch.nn.functional.pad(xb.float(), (0, 0, 0, pad)).reshape(Bsz, H, nc, L, P)
-    af = torch.nn.functional.pad(a.float(), (0, pad)).reshape(Bsz, H, nc, L)
-    Bc = torch.nn.functional.pad(Bm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, L, N)
-    Cc = torch.nn.functional.pad(Cm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, L, N)
+    xf = torch.nn.functional.pad(upcast(xb), (0, 0, 0, pad)).reshape(Bsz, H, nc, L, P)
+    af = torch.nn.functional.pad(upcast(a), (0, pad)).reshape(Bsz, H, nc, L)
+    Bc = torch.nn.functional.pad(upcast(Bm), (0, 0, 0, pad)).reshape(Bsz, nc, L, N)
+    Cc = torch.nn.functional.pad(upcast(Cm), (0, 0, 0, pad)).reshape(Bsz, nc, L, N)
 
     a_cs = torch.cumsum(af, dim=-1)  # (B, H, c, l)
     Lmat = torch.exp(_segsum(af))  # (B, H, c, l, l)
@@ -125,7 +133,7 @@ def ssd_scan_plain(
     # 3) inter-chunk recurrence over chunk states
     if init_state is None:
         init_state = torch.zeros_like(states[:, :, 0])
-    states = torch.cat([init_state.float()[:, :, None], states], dim=2)  # (B, H, c+1, P, N)
+    states = torch.cat([upcast(init_state)[:, :, None], states], dim=2)  # (B, H, c+1, P, N)
     chunk_decay = torch.nn.functional.pad(a_cs[..., -1], (1, 0))  # (B, H, c+1)
     dc = torch.exp(_segsum(chunk_decay))  # (B, H, c+1, c+1)
     new_states = torch.einsum("bhzc,bhcpn->bhzpn", dc, states)
@@ -136,6 +144,135 @@ def ssd_scan_plain(
 
     y = (y_diag + y_off).reshape(Bsz, H, nc * L, P)[:, :, :T]
     return y, final_state
+
+
+def _rev_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """The adjoint of ``cumsum`` over the last axis: suffix sums."""
+    return x.flip(-1).cumsum(-1).flip(-1)
+
+
+def _segsum_adjoint(dseg: torch.Tensor) -> torch.Tensor:
+    """The adjoint of :func:`_segsum` (through ``cs[i] - cs[j]`` and the
+    cumsum under it), given the gradient of its lower triangle."""
+    return _rev_cumsum(dseg.sum(-1) - dseg.sum(-2))
+
+
+def ssd_scan_backward(
+    xb: torch.Tensor,  # (B, H, T, P)
+    a: torch.Tensor,  # (B, H, T)
+    Bm: torch.Tensor,  # (B, T, N)
+    Cm: torch.Tensor,  # (B, T, N)
+    dy: torch.Tensor | None,  # (B, H, T, P)
+    dh_final: torch.Tensor | None = None,  # (B, H, P, N)
+    *,
+    chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The adjoint of :func:`ssd_scan`: (dy, dh_final; either may be None)
+    -> (dxb, da, dBm, dCm), each in its input's dtype, in explicit chunked
+    torch ops on any device (no backward kernel: the reference has none).
+
+    It recomputes the forward's chunked quantities (:func:`ssd_scan_plain`'s
+    four stages, chunks of ``chunk``, a ragged last chunk padded with zeros
+    and ``a = 0``) and transposes each stage in turn, in fp32:
+
+    4. the state term ``E∘(C·Sᵀ)``, E = exp(a_cs): into dC, the states S
+       entering each chunk, and a_cs through E;
+    3. the inter-chunk recurrence ``S = exp(segsum(chunk decays)) · states``:
+       its transpose carries dS (and ``dh_final`` as the last state's) back
+       to each chunk's own state, and its decay matrix gives each chunk's
+       total decay a gradient, through the segment sums' cumsum;
+    2. the chunk-final states ``Bᵀ·(decay∘xb)``: into dB, dxb and a_cs
+       (the decay is exp(a_cs[-1] − a_cs));
+    1. the intra-chunk term ``(C·Bᵀ ∘ exp(segsum(a)))·xb``: into dxb, dC,
+       dB and a_cs through every exp(segsum) entry;
+
+    then da = the suffix sums of da_cs (a_cs is a cumsum within a chunk).
+    Counted in ``ssd_scan_backward.calls``."""
+    _check_args(xb, a, Bm, Cm)
+    ssd_scan_backward.calls += 1
+    Bsz, H, T, P = xb.shape
+    N = Bm.shape[-1]
+    L = max(1, min(chunk, T))
+    pad = (-T) % L
+    nc = (T + pad) // L
+    pad_t = torch.nn.functional.pad
+    xf = pad_t(xb.float(), (0, 0, 0, pad)).reshape(Bsz, H, nc, L, P)
+    af = pad_t(a.float(), (0, pad)).reshape(Bsz, H, nc, L)
+    Bc = pad_t(Bm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, L, N)
+    Cc = pad_t(Cm.float(), (0, 0, 0, pad)).reshape(Bsz, nc, L, N)
+    if dy is None:
+        dyf = torch.zeros_like(xf)
+    else:
+        dyf = pad_t(dy.float(), (0, 0, 0, pad)).reshape(Bsz, H, nc, L, P)
+
+    # the forward's quantities
+    a_cs = torch.cumsum(af, dim=-1)  # (B, H, c, l)
+    Lmat = torch.exp(_segsum(af))  # (B, H, c, l, s)
+    scores = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
+    decay_states = torch.exp(a_cs[..., -1:] - a_cs)
+    states = torch.einsum("bcln,bhclp->bhcpn", Bc, xf * decay_states[..., None])
+    states_full = torch.cat([torch.zeros_like(states[:, :, :1]), states], dim=2)  # (B, H, c+1, P, N)
+    dc = torch.exp(_segsum(torch.nn.functional.pad(a_cs[..., -1], (1, 0))))  # (B, H, c+1, c+1)
+    prev = torch.einsum("bhzc,bhcpn->bhzpn", dc, states_full)[:, :, :-1]
+    E = torch.exp(a_cs)
+
+    # 4) the state term y_off = E * (C . prev^T)
+    dyE = dyf * E[..., None]
+    dCc = torch.einsum("bhclp,bhcpn->bcln", dyE, prev)
+    dprev = torch.einsum("bhclp,bcln->bhcpn", dyE, Cc)
+    da_cs = torch.einsum("bhclp,bhclp->bhcl", dyE, torch.einsum("bcln,bhcpn->bhclp", Cc, prev))
+
+    # 3) the inter-chunk recurrence over chunk states
+    dfinal = torch.zeros_like(states[:, :, 0]) if dh_final is None else dh_final.float()
+    dnew = torch.cat([dprev, dfinal[:, :, None]], dim=2)  # (B, H, c+1, P, N)
+    dstates = torch.einsum("bhzc,bhzpn->bhcpn", dc, dnew)[:, :, 1:]
+    dchunk = _segsum_adjoint(torch.einsum("bhzpn,bhcpn->bhzc", dnew, states_full) * dc)
+    da_cs[..., -1] += dchunk[..., 1:]
+
+    # 2) the chunk-final states, Bᵀ (decay * xb)
+    dBc = torch.einsum("bhcpn,bhclp->bcln", dstates, xf * decay_states[..., None])
+    dxs = torch.einsum("bhcpn,bcln->bhclp", dstates, Bc)  # the gradient of decay * xb
+    dxf = dxs * decay_states[..., None]
+    dds = (dxs * xf).sum(-1) * decay_states
+    da_cs -= dds
+    da_cs[..., -1] += dds.sum(-1)
+
+    # 1) the intra-chunk term, (scores * Lmat) . xb
+    M = scores[:, None] * Lmat
+    dM = torch.einsum("bhclp,bhcsp->bhcls", dyf, xf)
+    dxf += torch.einsum("bhcls,bhclp->bhcsp", M, dyf)
+    dseg = dM * M
+    da_cs += dseg.sum(-1) - dseg.sum(-2)
+    dscores = (dM * Lmat).sum(1)
+    dCc += torch.einsum("bcls,bcsn->bcln", dscores, Bc)
+    dBc += torch.einsum("bcls,bcln->bcsn", dscores, Cc)
+
+    daf = _rev_cumsum(da_cs)
+    return (
+        dxf.reshape(Bsz, H, nc * L, P)[:, :, :T].to(xb.dtype),
+        daf.reshape(Bsz, H, nc * L)[:, :, :T].to(a.dtype),
+        dBc.reshape(Bsz, nc * L, N)[:, :T].to(Bm.dtype),
+        dCc.reshape(Bsz, nc * L, N)[:, :T].to(Cm.dtype),
+    )
+
+
+ssd_scan_backward.calls = 0
+
+
+class _SsdScan(torch.autograd.Function):
+    """The kernel's forward (counted, unchanged) under autograd, with
+    :func:`ssd_scan_backward` as its backward; a gradient of ``h_final``
+    may be absent (None)."""
+
+    @staticmethod
+    def forward(ctx, xb, a, Bm, Cm):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xb, a, Bm, Cm)
+        return ssd_scan(xb, a, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        return ssd_scan_backward(*ctx.saved_tensors, dy, dh_final)
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,10 +304,15 @@ def ssd_scan(
     """``(y (B, H, T, P), h_final (B, H, P, N))``, both float32.
 
     CUDA tensors launch the Hopper kernels (two or three, counted once in
-    ``ssd_scan.launches``); CPU tensors take :func:`ssd_scan_plain`.
+    ``ssd_scan.launches``); CPU tensors take :func:`ssd_scan_plain`.  Under
+    grad, with an input that needs a gradient, CUDA tensors go through
+    :class:`_SsdScan`: the same launch forward, :func:`ssd_scan_backward`
+    backward.
     """
     if xb.device.type == "cpu":
         return ssd_scan_plain(xb, a, Bm, Cm)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xb, a, Bm, Cm)):
+        return _SsdScan.apply(xb, a, Bm, Cm)
     _check_args(xb, a, Bm, Cm)
     if xb.device.type != "cuda" or any(t.device != xb.device for t in (a, Bm, Cm)):
         raise ValueError(

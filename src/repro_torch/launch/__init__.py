@@ -1,1 +1,1 @@
-"""repro_torch.launch — entry points (serving)."""
+"""repro_torch.launch — entry points (serving, training)."""

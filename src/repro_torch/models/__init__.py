@@ -1,4 +1,4 @@
-"""repro_torch.models — the LM stack, for the ``attn`` (dense or MoE), ``ssd`` and recurrentgemma architectures.
+"""repro_torch.models — the LM stack, for every architecture of the pool.
 
 * :class:`ModelConfig` — a copy of the reference's config dataclass;
 * :class:`LM` — the reference ``LM`` as an ``nn.Module`` (prefill
@@ -8,10 +8,10 @@
 * :mod:`.moe`, :mod:`.ssd`, :mod:`.rglru` — the MoE FFN, the mamba2 block
   and the Griffin recurrent block;
 * :func:`params_from_jax` — loads a reference ``LM.init`` tree (numpy
-  leaves) into an :class:`LM`.
+  leaves) into an :class:`LM`; :func:`params_to_jax`, its inverse.
 """
 
 from .config import ModelConfig
-from .transformer import LM, StackSpec, params_from_jax
+from .transformer import LM, StackSpec, params_from_jax, params_to_jax
 
-__all__ = ["ModelConfig", "LM", "StackSpec", "params_from_jax"]
+__all__ = ["ModelConfig", "LM", "StackSpec", "params_from_jax", "params_to_jax"]

@@ -12,7 +12,8 @@ token against the cache, a softmax over ``S_max`` keys: plain torch, as
 the reference computes it in plain jnp.
 
 GQA: ``n_kv_heads`` K/V heads shared by groups of query heads (kv=1 is
-MQA, e.g. granite-34b).  M-RoPE (qwen2-vl) is not ported yet.
+MQA, e.g. granite-34b).  M-RoPE (qwen2-vl): head-dim sections rotate with
+separate (t, h, w) position streams (:func:`mrope_tables`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch._device import upcast
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
@@ -32,6 +34,7 @@ __all__ = [
     "attention_kv",
     "decode_attention",
     "rope_tables",
+    "mrope_tables",
     "apply_rope",
     "KVCache",
 ]
@@ -48,6 +51,26 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float) -> tuple[t
     exponent = torch.arange(half, dtype=torch.float32, device=positions.device) / half
     freqs = 1.0 / (theta**exponent)
     ang = positions.float()[..., None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def mrope_tables(
+    positions3: torch.Tensor, sections: tuple[int, ...], head_dim: int, theta: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE (qwen2-vl): positions3 (3, B, S); head-dim halves split into
+    ``sections`` (t, h, w), each rotated by its own position stream.
+    Returns sin/cos (B, S, head_dim//2), float32."""
+    half = head_dim // 2
+    assert sum(sections) == half, (sections, half)
+    exponent = torch.arange(half, dtype=torch.float32, device=positions3.device) / half
+    freqs = 1.0 / (theta**exponent)
+    ang_all = positions3.float()[..., None] * freqs  # (3, B, S, half)
+    parts = []
+    start = 0
+    for i, sec in enumerate(sections):
+        parts.append(ang_all[i, ..., start : start + sec])
+        start += sec
+    ang = torch.cat(parts, dim=-1)  # (B, S, half)
     return torch.sin(ang), torch.cos(ang)
 
 
@@ -150,11 +173,11 @@ def _attend_cache(q, k, v, valid, cfg: ModelConfig, dtype) -> torch.Tensor:
     B = q.shape[0]
     hd, nh, nkv = cfg.head_dim_, cfg.n_heads, cfg.kv_heads
     g = nh // nkv
-    qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, 1, nkv, g, hd)
-    s = torch.einsum("bqkgd,bskd->bqkgs", qf, k.float())
+    qf = (upcast(q) * (1.0 / math.sqrt(hd))).reshape(B, 1, nkv, g, hd)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qf, upcast(k))
     s = torch.where(valid[None, None, None, None, :], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bqkgs,bskd->bqkgd", p, v.float())
+    out = torch.einsum("bqkgs,bskd->bqkgd", p, upcast(v))
     return out.reshape(B, 1, nh * hd).to(dtype)
 
 

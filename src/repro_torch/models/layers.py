@@ -19,6 +19,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch._device import upcast
+
 __all__ = [
     "ParamSpec",
     "init_from_specs",
@@ -26,6 +28,7 @@ __all__ = [
     "spec_shapes",
     "torch_dtype",
     "rmsnorm",
+    "layernorm",
     "mlp",
     "mlp_params",
     "embed_params",
@@ -100,10 +103,21 @@ def init_from_specs(specs, generator: torch.Generator, device=None):
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = upcast(x)
     var = torch.mean(x * x, dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.float())).to(dt)
+    return (y * (1.0 + upcast(scale))).to(dt)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The reference's layernorm: fp32 statistics (biased variance), the
+    result in x's dtype.  Exported; no model calls it, as in the reference."""
+    dt = x.dtype
+    x = upcast(x)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * upcast(scale) + upcast(bias)).to(dt)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

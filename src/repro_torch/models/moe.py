@@ -33,6 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch._device import upcast
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
@@ -91,7 +92,7 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
     E, K = cfg.n_experts, cfg.top_k
     C = moe_capacity(cfg, S)
 
-    logits = x.float() @ params["router"]  # (B, S, E)
+    logits = upcast(x) @ params["router"]  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     slots, gates = _route(probs, K, C)
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch._device import upcast
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec, gelu, torch_dtype
@@ -73,7 +74,7 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _gates(params: dict, xr: torch.Tensor):
     """a_t and the scaled input b_t of the recurrence, both float32."""
-    x32 = xr.float()
+    x32 = upcast(xr)
     r = torch.sigmoid(x32 * params["gate_a_w"] + params["gate_a_b"])
     i = torch.sigmoid(x32 * params["gate_i_w"] + params["gate_i_b"])
     log_a = -_C * _softplus(params["lam"]) * r  # (B,T,W) <= 0
@@ -101,7 +102,7 @@ def rglru_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state
     a, b = _gates(params, xr)
     h = rglru_scan(a, b)
     # the reference's order of casts: gelu in x's dtype, the product in fp32
-    y = (gelu(xg).float() * h).to(x.dtype)
+    y = (upcast(gelu(xg)) * h).to(x.dtype)
     y = y @ params["wo"]
     if return_state:
         return y, {"h": h[:, -1], "conv": conv_state}
@@ -121,7 +122,7 @@ def rglru_decode_step(
     xr, conv_state = _causal_conv1d(xr, params["conv_w"], state["conv"])
     a, b = _gates(params, xr)  # (B,1,W)
     h = a[:, 0] * state["h"] + b[:, 0]  # (B,W)
-    y = (gelu(xg[:, 0]).float() * h).to(x.dtype)
+    y = (upcast(gelu(xg[:, 0])) * h).to(x.dtype)
     y = (y @ params["wo"])[:, None, :]
     return y, {"h": h, "conv": conv_state}
 

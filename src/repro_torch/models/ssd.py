@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch._device import upcast
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec, rmsnorm, torch_dtype
@@ -81,8 +82,8 @@ def ssd_chunked_ref(
 def _scan_inputs(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor):
     """xb = x * dt and a = dt * A, as (B, H, T, P) and (B, H, T) views of
     (B, T, H, ...) storage."""
-    xb = (xh * dt[..., None]).float()
-    a = (dt * A[None, None, :]).float()
+    xb = upcast(xh * dt[..., None])
+    a = upcast(dt * A[None, None, :])
     return xb.transpose(1, 2), a.transpose(1, 2)
 
 
@@ -91,7 +92,7 @@ def _in_proj(params: dict, x: torch.Tensor):
     xs = x @ params["in_x"]
     Bm = x @ params["in_B"]
     Cm = x @ params["in_C"]
-    dt = F.softplus((x @ params["in_dt"]).float() + params["dt_bias"])  # (B,T,H)
+    dt = F.softplus(upcast(x @ params["in_dt"]) + params["dt_bias"])  # (B,T,H)
     return z, xs, Bm, Cm, dt
 
 
@@ -118,7 +119,7 @@ def ssd_block(params: dict, x: torch.Tensor, cfg: ModelConfig, chunk: int = 128,
     A = -torch.exp(params["A_log"])  # (H,) negative
     xh = xs.reshape(B_, T, H, P)
     y, final_state = ssd_scan(*_scan_inputs(xh, dt, A), Bm, Cm)
-    y = y.transpose(1, 2) + xh.float() * params["D"][None, None, :, None]
+    y = y.transpose(1, 2) + upcast(xh) * params["D"][None, None, :, None]
     y = y.reshape(B_, T, d_in).to(x.dtype)
     y = _out_proj(params, y, z, cfg)
     if return_state:
@@ -153,9 +154,9 @@ def ssd_decode_step(
     xs, cx = _causal_conv1d(xs, params["conv_x"], state["conv_x"])
     Bm, cb = _causal_conv1d(Bm, params["conv_B"], state["conv_B"])
     Cm, cc = _causal_conv1d(Cm, params["conv_C"], state["conv_C"])
-    xs = F.silu(xs)[:, 0].reshape(B_, H, P).float()
-    Bm = F.silu(Bm)[:, 0].float()  # (B,N)
-    Cm = F.silu(Cm)[:, 0].float()
+    xs = upcast(F.silu(xs)[:, 0].reshape(B_, H, P))
+    Bm = upcast(F.silu(Bm)[:, 0])  # (B,N)
+    Cm = upcast(F.silu(Cm)[:, 0])
     dt = dt[:, 0]  # (B,H)
 
     A = -torch.exp(params["A_log"])

@@ -6,9 +6,9 @@ The port of ``repro.models.transformer``.  One class, :class:`LM`, an
   starcoder2-15b) or a top-k MoE (granite-moe-3b-a800m, dbrx-132b),
 * mamba2 ``ssd`` blocks, which carry no MLP (mamba2-1.3b), and
 * Griffin ``rglru`` blocks and windowed ``local_attn`` blocks, each with
-  an MLP, in recurrentgemma-2b's (rglru, rglru, local_attn) pattern.
-M-RoPE (qwen2-vl) and the frontend stub (hubert) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+  an MLP, in recurrentgemma-2b's (rglru, rglru, local_attn) pattern,
+with M-RoPE positions (qwen2-vl) and the modality frontend stub, one
+projection of precomputed embeddings (qwen2-vl, hubert).
 
 What changes against the reference:
 
@@ -40,24 +40,48 @@ What changes against the reference:
   RG-LRU recurrence through the ``rglru_scan`` kernel
   (:mod:`repro_torch.models.rglru`).
 
+* Training: the parameters are created with ``requires_grad=False`` (the
+  serving engines run under ``torch.inference_mode()``); the trainer
+  (:mod:`repro_torch.training`) turns them on.  ``cfg.remat`` maps the
+  reference's ``jax.checkpoint`` of one scan body to
+  ``torch.utils.checkpoint`` of one layer: ``"full"`` recomputes the
+  layer in the backward, ``"dots"`` keeps the outputs of its matmuls
+  without batch dims (``mm``, ``addmm``: the reference's
+  ``dots_with_no_batch_dims_saveable``) and recomputes the rest,
+  ``"none"`` saves everything.  Each kernel wrapper has its own backward
+  (``repro_torch.kernels``).
+* :func:`params_to_jax` is the inverse of :func:`params_from_jax`, and
+  :meth:`LM.reference_tree` / :meth:`LM.named_from_reference` carry any
+  per-parameter tensors (AdamW's moments and master weights too) to the
+  reference's stacked layout and back, for checkpoints both packages read.
+
 Entry points:
   forward(tokens | embeds)            -> (logits (B,S,V), MoE aux)
+  loss(batch)                         -> scalar (+ 0.01 MoE aux)
   prefill(tokens, max_len)            -> (last_logits (B,V), cache)
   decode_step(cache, tokens, position)-> (logits (B,V), cache)
 """
 
 from __future__ import annotations
 
+import functools
+from collections import Counter
 from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
-from repro_torch._device import resolve_device
+from repro_torch._device import resolve_device, upcast
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.attention import attention_kv, rope_tables
+from repro_torch.models.attention import attention_kv, mrope_tables, rope_tables
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     ParamSpec,
@@ -74,7 +98,7 @@ from repro_torch.models.moe import moe_ffn, moe_params
 from repro_torch.models.rglru import rglru_block, rglru_decode_step, rglru_params, rglru_state_init
 from repro_torch.models.ssd import ssd_block, ssd_decode_step, ssd_params, ssd_state_init
 
-__all__ = ["LM", "StackSpec", "params_from_jax"]
+__all__ = ["LM", "StackSpec", "params_from_jax", "params_to_jax"]
 
 
 @dataclass(frozen=True)
@@ -125,15 +149,19 @@ _CACHE_AXES = {
 }
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet, naming its ROADMAP item."""
-    missing = []
-    if cfg.pos_kind == "mrope":
-        missing.append("M-RoPE positions for qwen2-vl (ROADMAP A11)")
-    if cfg.frontend_stub:
-        missing.append("the modality frontend stub (ROADMAP A11)")
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: the port does not run " + "; ".join(missing) + " yet")
+# remat="dots": the matmuls without batch dims keep their outputs
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# each remat mode's context around a checkpointed layer's two passes
+_REMAT_CONTEXT = {
+    "full": noop_context_fn,
+    "dots": functools.partial(create_selective_checkpoint_contexts, _dots_policy),
+}
 
 
 class _Params(nn.Module):
@@ -163,7 +191,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None, generator: torch.Generator | None = None):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         self.stacks = _plan_stacks(cfg)
         dev = resolve_device(device)
@@ -211,6 +238,10 @@ class LM(nn.Module):
         a leading ``layers`` axis."""
         cfg = self.cfg
         specs: dict[str, Any] = {"embed": embed_params(cfg.vocab, cfg.d_model, cfg.dtype)}
+        if cfg.frontend_stub:
+            # modality frontend stub: a single projection from precomputed
+            # frame/patch embeddings
+            specs["frontend"] = ParamSpec((cfg.d_model, cfg.d_model), ("embed", None), cfg.dtype)
         for i, st in enumerate(self.stacks):
             blk = {f"b{j}_{bt}": self._block_specs(bt) for j, bt in enumerate(st.pattern)}
             specs[f"stack{i}"] = _stack_specs(blk, st.repeats)
@@ -231,22 +262,67 @@ class LM(nn.Module):
         """The parameters as the reference's dicts: top level, and one per layer."""
         return self.top.tree(), [layer.tree() for layer in self.layers]
 
+    def _reference_paths(self) -> dict[str, tuple[tuple[str, ...], int | None]]:
+        """Each parameter's name -> (its leaf's path in the reference tree,
+        its index along that leaf's ``layers`` axis, or None at the top)."""
+        paths = {f"top.{name}": (tuple(name.split(".")), None) for name, _ in self.top.named_parameters()}
+        n = 0
+        for i, st in enumerate(self.stacks):
+            for r in range(st.repeats):
+                for j, bt in enumerate(st.pattern):
+                    for name, _ in self.layers[n].named_parameters():
+                        paths[f"layers.{n}.{name}"] = ((f"stack{i}", f"b{j}_{bt}", *name.split(".")), r)
+                    n += 1
+        return paths
+
+    def reference_tree(self, named: dict[str, torch.Tensor]) -> dict:
+        """Tensors keyed by this module's parameter names (as
+        ``named_parameters()`` gives them) -> the reference's tree: top-level
+        leaves as given, each stack's leaves stacked over its repeats (a
+        new tensor)."""
+        tree: dict[str, Any] = {}
+        stacked: dict[tuple[str, ...], dict[int, torch.Tensor]] = {}
+        for name, (path, r) in self._reference_paths().items():
+            if r is None:
+                _set_path(tree, path, named[name])
+            else:
+                stacked.setdefault(path, {})[r] = named[name]
+        for path, by_r in stacked.items():
+            _set_path(tree, path, torch.stack([by_r[r] for r in range(len(by_r))]))
+        return tree
+
+    def named_from_reference(self, tree: dict) -> dict[str, Any]:
+        """The inverse of :meth:`reference_tree`: a reference tree (tensors
+        or numpy leaves) -> each parameter's slice, keyed by its name."""
+        out = {}
+        for name, (path, r) in self._reference_paths().items():
+            leaf = tree
+            for k in path:
+                leaf = leaf[k]
+            out[name] = leaf if r is None else leaf[r]
+        return out
+
     # ------------------------------------------------------------------
     # Blocks
     # ------------------------------------------------------------------
     def _embed_in(self, top: dict, tokens: torch.Tensor | None, embeds: torch.Tensor | None):
         cfg = self.cfg
         if embeds is not None:
-            return embeds.to(torch_dtype(cfg.dtype))
+            x = embeds.to(torch_dtype(cfg.dtype))
+            return x @ top["frontend"] if cfg.frontend_stub else x
         x = top["embed"][tokens]
         return x * self.embed_scale.to(x.dtype)
 
-    def _rope_for(self, positions: torch.Tensor | None, S: int):
+    def _rope_for(self, positions: torch.Tensor | None, B: int, S: int):
         cfg = self.cfg
         if cfg.pos_kind == "none":
             return (None, None)
         if positions is None:
             positions = torch.arange(S, device=self.device)
+        if cfg.pos_kind == "mrope":
+            if positions.dim() == 1:
+                positions = positions.expand(3, B, S)
+            return mrope_tables(positions, cfg.mrope_sections, cfg.head_dim_, cfg.rope_theta)
         return rope_tables(positions, cfg.head_dim_, cfg.rope_theta)
 
     def _head(self, top: dict, x: torch.Tensor) -> torch.Tensor:
@@ -303,15 +379,36 @@ class LM(nn.Module):
         losses summed over layers (0 without MoE))."""
         top, layers = self._params()
         x = self._embed_in(top, tokens, embeds)
-        rope = self._rope_for(positions, x.shape[1])
+        rope = self._rope_for(positions, x.shape[0], x.shape[1])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = self.cfg.remat if torch.is_grad_enabled() else "none"
         for bt, bp in zip(self.block_types, layers):
-            x, a = self._block(bt, bp, x, rope)
+            if remat == "none":
+                x, a = self._block(bt, bp, x, rope)
+            else:
+                x, a = checkpoint(self._block, bt, bp, x, rope, use_reentrant=False, context_fn=_REMAT_CONTEXT[remat])
             if a is not None:
                 aux = aux + a
         if last_only:
             x = x[:, -1:]
         return self._head(top, x), aux
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Mean next-token (or frame-label) cross-entropy + 0.01 x the MoE
+        aux, as the reference's: logits in fp32, logsumexp minus the gold
+        logit, averaged over ``batch["mask"]`` where given (at least 1)."""
+        logits, aux = self.forward(batch.get("tokens"), embeds=batch.get("embeds"), positions=batch.get("positions"))
+        logits = upcast(logits)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        nll = logz - gold
+        mask = batch.get("mask")
+        if mask is not None:
+            nll = nll * mask
+            denom = torch.clamp_min(torch.sum(mask), 1.0)
+        else:
+            denom = nll.numel()
+        return torch.sum(nll) / denom + 0.01 * aux
 
     # ------------------------------------------------------------------
     # Serving: cache init / prefill / decode
@@ -426,7 +523,7 @@ class LM(nn.Module):
         assert max_len >= S
         top, layers = self._params()
         x = self._embed_in(top, tokens, None)
-        rope = self._rope_for(None, S)
+        rope = self._rope_for(None, B, S)
         cache = self.init_cache(B, max_len)
         x = self._forward_filling(layers, x, rope, cache)
         return self._head(top, x[:, -1:])[:, 0], cache
@@ -462,6 +559,12 @@ def _fill_layer_cache(lc: dict, k: torch.Tensor, v: torch.Tensor) -> None:
         lc["pos"][:S] = torch.arange(S, dtype=torch.int32, device=k.device)
 
 
+def _set_path(tree: dict, path: tuple[str, ...], leaf) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
 def _index(tree, r: int):
     if isinstance(tree, dict):
         return {k: _index(v, r) for k, v in tree.items()}
@@ -477,29 +580,48 @@ def params_from_jax(lm: LM, params: dict) -> LM:
     weights are stored ``(in, out)``, the orientation the port keeps, so
     nothing is transposed.  Each leaf goes through float32 numpy (lossless
     for bf16) and is cast to the parameter's dtype.  Every parameter must
-    be given, with its exact shape.
+    be given, with its exact shape, and nothing else.
     """
-    top, layers = lm._params()
-
-    def load(dst: dict, src: dict, where: str) -> None:
-        if set(dst) != set(src):
-            raise ValueError(f"{where}: port keys {sorted(dst)} != given {sorted(src)}")
-        for k in dst:
-            if isinstance(dst[k], dict):
-                load(dst[k], src[k], f"{where}/{k}")
-                continue
-            arr = np.asarray(src[k])
-            if tuple(arr.shape) != tuple(dst[k].shape):
-                raise ValueError(f"{where}/{k}: shape {arr.shape} != {tuple(dst[k].shape)}")
-            dst[k].copy_(torch.from_numpy(arr.astype(np.float32)))
-
-    stacks = {f"stack{i}" for i in range(len(lm.stacks))}
-    load(top, {k: v for k, v in params.items() if k not in stacks}, "")
-    n = 0
-    for i, st in enumerate(lm.stacks):
-        sp = params[f"stack{i}"]
-        for r in range(st.repeats):
-            for j, bt in enumerate(st.pattern):
-                load(layers[n], _index(sp[f"b{j}_{bt}"], r), f"stack{i}[{r}]/b{j}_{bt}")
-                n += 1
+    paths = lm._reference_paths()
+    want = {path for path, _ in paths.values()}
+    given = set(_leaf_paths(params))
+    if want != given:
+        raise ValueError(f"missing leaves {sorted('/'.join(p) for p in want - given)}, "
+                         f"unexpected leaves {sorted('/'.join(p) for p in given - want)}")
+    named = dict(lm.named_parameters())
+    repeats = Counter(path for path, r in paths.values() if r is not None)
+    for name, (path, r) in paths.items():
+        leaf = params
+        for k in path:
+            leaf = leaf[k]
+        shape = tuple(named[name].shape) if r is None else (repeats[path], *named[name].shape)
+        if tuple(np.shape(leaf)) != shape:
+            raise ValueError(f"{'/'.join(path)}: shape {np.shape(leaf)} != {shape}")
+    for name, arr in lm.named_from_reference(params).items():
+        named[name].copy_(torch.from_numpy(np.asarray(arr).astype(np.float32)))
     return lm
+
+
+def _leaf_paths(tree, prefix: tuple[str, ...] = ()):
+    if not isinstance(tree, dict):
+        yield prefix
+        return
+    for k, v in tree.items():
+        yield from _leaf_paths(v, (*prefix, k))
+
+
+@torch.no_grad()
+def params_to_jax(lm: LM) -> dict:
+    """The inverse of :func:`params_from_jax`: ``lm``'s parameters as the
+    reference ``LM.init`` tree (``stack{i}`` leaves stacked over their
+    layers), with numpy leaves.  bfloat16 leaves come back widened to
+    float32 (numpy has no bfloat16; the widening is exact, as in the
+    reference's checkpoints), the rest in their own dtype."""
+    tree = lm.reference_tree(dict(lm.named_parameters()))
+    return _map_tree(lambda t: (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy(), tree)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)

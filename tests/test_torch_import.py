@@ -42,7 +42,10 @@ assert {"repro_torch.backend.lower", "repro_torch.kernels.matmul_requant",
         "repro_torch.targets.h100", "repro_torch.targets.tpu_v5e",
         "repro_torch.calibrate.fit", "repro_torch.calibrate.microbench", "repro_torch.calibrate.__main__",
         "repro_torch.fuzz.generate", "repro_torch.fuzz.oracle", "repro_torch.fuzz.corpus",
-        "repro_torch.fuzz.shrink", "repro_torch.fuzz.__main__", "repro_torch.obs.__main__"} <= set(names)
+        "repro_torch.fuzz.shrink", "repro_torch.fuzz.__main__", "repro_torch.obs.__main__",
+        "repro_torch.training.optimizer", "repro_torch.training.train_loop", "repro_torch.training.checkpoint",
+        "repro_torch.training.fault_tolerance", "repro_torch.data.pipeline", "repro_torch.distributed.compression",
+        "repro_torch.launch.train"} <= set(names)
 """
 
 # the entry points, imported in a fresh interpreter
@@ -52,6 +55,7 @@ import repro_torch.models, repro_torch.serving, repro_torch.launch.serve
 import repro_torch.configs, repro_torch.pipeline, repro_torch.calibrate
 import repro_torch.serve, repro_torch.targets.h100, repro_torch.fuzz
 import repro_torch.calibrate.__main__, repro_torch.fuzz.__main__, repro_torch.obs.__main__
+import repro_torch.training, repro_torch.data, repro_torch.distributed, repro_torch.launch.train
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
 """

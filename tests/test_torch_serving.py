@@ -254,5 +254,7 @@ def test_serve_cli_on_moe_and_ssd_smoke_configs(arch, capsys):
 def test_serve_cli_refuses_encoder_only_and_unported_configs():
     with pytest.raises(AssertionError, match="encoder-only"):
         serve_cli.main(["--arch", "hubert_xlarge", "--smoke", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_cli.main(["--arch", "qwen2_vl_2b", "--smoke", "--device", "cpu"])
+    # qwen2-vl (M-RoPE), once refused, now serves: token prompts, M-RoPE
+    # positions broadcast to its three streams, as the reference serves it
+    done = serve_cli.main(["--arch", "qwen2_vl_2b", "--smoke", "--device", "cpu", "--requests", "2", "--max-new", "2"])
+    assert sorted(r.rid for r in done) == [0, 1]
