@@ -192,14 +192,46 @@ failure:
    by its ``PreemptionGuard`` and resumed from its checkpoint giving the
    uninterrupted run's losses, the checkpoint restoring through the
    reference format into ``params_from_jax``;
-14. one JSON line of per-kernel numbers (each LM kernel with its
-   training launches and its backward's times), the card line, and last
-   the ``{"ok": true, "device": ...}`` line.
+14. ``[ops]``: ``repro_torch.kernels.ops``, the kernels behind the LOMA
+   DSE on the card's own target: ``kernel_schedule_table()`` on h100
+   (each row's module, blocks, grid order, predicted cycles and the knob
+   the schedule set); then each ``scheduled_*`` wrapper once on the card,
+   launch counters reset just before and read just after (one launch of
+   its kernel, none of another), at the reference table's full shapes
+   (``matmul_requant`` 4096 x 6144 x 6144 int8, ``flash_attention`` B 8,
+   H 16, S 4096, D 128 bf16 causal, ``rglru_scan`` 8 x 4096 x 2560 f32)
+   or the served shapes of ``PERF.md`` (``moe_gmm`` granite's 40 x 32 x
+   1536 x 512 bf16, ``ssd_scan`` mamba2's (1, 4096)), each held against
+   its plain version on the card (``matmul_requant`` bit-exact, by row
+   blocks; flash and ``moe_gmm`` 2e-2; ``rglru_scan`` 1e-4; ``ssd_scan``
+   2e-4, y and the final state); each wrapper's host ms per call with its
+   schedule cached and cold (the DSE's cost per call) beside the bare
+   kernel wrapper's; and ``ssd_scan``'s device ms with the DSE's heads per
+   block against the kernel's own rule;
+15. ``[shard]``: a 1 x 1 ``DeviceMesh`` on the card (a one-rank NCCL
+   group, destroyed after): qwen2.5-3b's full-width parameters placed by
+   ``param_shardings`` under the rules ``best_rules`` picks for it, each
+   DTensor's local tensor bitwise the parameter; ``constrain`` an
+   identity on values; and ``best_rules``'s strategy for every
+   applicable (arch x shape) on both production meshes (a TPU v5e pod
+   model's choice, printed by name only);
+16. ``[dryrun]``: ``python -m repro_torch.launch.roofline --arch A --shape
+   train_4k`` for qwen2.5-3b and mamba2-1.3b, each in a subprocess (its
+   fake 256-rank group never meets NCCL): the depth-p and 2p records'
+   flops, per-chip argument bytes and collective bytes by kind, the three
+   H100 terms, and the counted flops over ``roofline.flops_ratio``'s need
+   (model flops + attention flops, x the remat recompute), which must
+   lie in ``FLOPS_RATIO`` at depth p and extrapolated;
+17. one JSON line of per-kernel numbers (each LM kernel with its
+   training launches and its backward's times, each kernel with its
+   ``[ops]`` launches), the card line, and last the ``{"ok": true,
+   "device": ...}`` line.
 
 ``--only`` is a development aid: it runs the named phases of ``gemm``
 and ``kernels`` (3), ``cnn`` (4), ``pipeline`` (5), ``cnn-serve`` (6),
 ``calibrate`` (7), ``fuzz`` (8), ``lm`` (9), ``lm-bf16`` (10),
-``prefill-long`` (11), ``serve`` (12) and ``train`` (13), after the card
+``prefill-long`` (11), ``serve`` (12), ``train`` (13), ``ops`` (14),
+``shard`` (15) and ``dryrun`` (16), after the card
 line and the build, and prints neither the
 JSON line nor the ``ok`` line, so it never stands in for a full run.
 ``--src DIR`` drives the ``repro_torch`` package under DIR instead of this
@@ -233,7 +265,7 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
 PHASES = ("gemm", "kernels", "cnn", "pipeline", "cnn-serve", "calibrate", "fuzz", "lm", "lm-bf16", "prefill-long",
-          "serve", "train")
+          "serve", "train", "ops", "shard", "dryrun")
 CHECKOUT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 
 
@@ -270,6 +302,7 @@ from repro_torch.cnn import (  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import dispatch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_backward,
@@ -3147,6 +3180,251 @@ def phase_train() -> dict:
     return out
 
 
+# [ops]: each scheduled wrapper at the reference table's full shapes or its
+# served shape, its plain version's tolerance on the card
+OPS_MM = (4096, 6144, 6144)  # (M, K, N), int8
+OPS_FLASH = (8, 16, 4096, 128)  # (B, H = KV, S, D), bf16, causal
+OPS_RGLRU = (8, 4096, 2560)  # (B, T, W), f32
+OPS_MM_ROWS = 8  # rows of A per plain block: the plain version broadcasts (rows, K, N) int32
+
+
+def host_call_ms(fn, cold: bool, runs: int = 5) -> float:
+    """Median host ms from call to return (the launch enqueued, not waited
+    for), the DSE's search cache cleared before each call when ``cold``."""
+    from repro_torch.core import clear_schedule_cache
+
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        if cold:
+            clear_schedule_cache()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def ops_cases() -> list[dict]:
+    """(kernel, scheduled call, bare kernel call, plain call, check) on the
+    card at [ops]' shapes."""
+    rng = np.random.default_rng(22)
+    M, K, N = OPS_MM
+    a = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8)).to(DEV)
+    w = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8)).to(DEV)
+    mult = torch.from_numpy(rng.integers(1, 8, (N,)).astype(np.int32)).to(DEV)
+    bias = torch.from_numpy(rng.integers(-1000, 1000, (N,)).astype(np.int32)).to(DEV)
+
+    def mm_plain():
+        return torch.cat([matmul_requant_plain(a[r:r + OPS_MM_ROWS], w, mult, bias, shift=16)
+                          for r in range(0, M, OPS_MM_ROWS)])
+
+    B, H, S, D = OPS_FLASH
+    q, k, v = flash_operands(B, H, H, S, S, D, torch.bfloat16, seed=22)
+    E, C, Dm, F = granite_gmm_shapes()[0][1:]
+    x, wg = gmm_operands(E, C, Dm, F, torch.bfloat16, seed=22)
+    cfg = get_config(SSD_ARCH)
+    Hs, P, Ns = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+    xb, sa, Bm, Cm = ssd_operands(1, Hs, LONG_PROMPT, P, Ns, torch.bfloat16, seed=22)
+    ra, rb = rglru_operands(*OPS_RGLRU, torch.float32, seed=22)
+    return [
+        {"kernel": "matmul_requant", "shape": [M, K, N], "tol": 0,
+         "scheduled": lambda: ops.scheduled_matmul_requant(a, w, mult, bias, shift=16),
+         "bare": lambda: matmul_requant(a, w, mult, bias, shift=16), "plain": mm_plain},
+        {"kernel": "flash_attention", "shape": [B, H, H, S, D], "tol": FLASH_TOL[torch.bfloat16],
+         "scheduled": lambda: ops.scheduled_flash_attention(q, k, v, causal=True),
+         "bare": lambda: flash_attention(q, k, v, causal=True),
+         "plain": lambda: flash_attention_plain(q, k, v, causal=True)},
+        {"kernel": "moe_gmm", "shape": [E, C, Dm, F], "tol": GMM_TOL[torch.bfloat16],
+         "scheduled": lambda: ops.scheduled_moe_gmm(x, wg), "bare": lambda: moe_gmm(x, wg),
+         "plain": lambda: moe_gmm_plain(x, wg)},
+        {"kernel": "ssd_scan", "shape": [1, Hs, LONG_PROMPT, P, Ns], "tol": SSD_TOL,
+         "scheduled": lambda: ops.scheduled_ssd_scan(xb, sa, Bm, Cm), "bare": lambda: ssd_scan(xb, sa, Bm, Cm),
+         "plain": lambda: ssd_scan_plain(xb, sa, Bm, Cm)},
+        {"kernel": "rglru_scan", "shape": list(OPS_RGLRU), "tol": RGLRU_TOL,
+         "scheduled": lambda: ops.scheduled_rglru_scan(ra, rb), "bare": lambda: rglru_scan(ra, rb),
+         "plain": lambda: rglru_scan_plain(ra, rb)},
+    ]
+
+
+def phase_ops() -> dict:
+    """[ops]: the h100 schedule table, then each scheduled wrapper launched
+    once on the card (counted), held against its plain version, and timed
+    on the host cold and cached."""
+    table = ops.kernel_schedule_table()
+    print("[ops] kernel_schedule_table() on the h100 target (LOMA DSE; blocks snapped to divisors; the knob "
+          "the schedule sets, None where the kernel keeps its own tiling):")
+    for r in table:
+        print(f"    {r['kernel']:16s} {r['module']:12s} dims {r['dims']} block {r['block']} order "
+              f"{' > '.join(r['grid_order'])} predicted {r['predicted_cycles']:.4g} cycles knob {r['knob']}")
+    if len(table) < 5 or any(not r["predicted_cycles"] > 0 for r in table):
+        raise AssertionError(f"[ops] schedule table: {len(table)} rows, cycles {[r['predicted_cycles'] for r in table]}")
+    out: dict = {"table": table, "kernels": {}}
+    for case in ops_cases():
+        name = case["kernel"]
+        reset_counts()
+        got = case["scheduled"]()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want_counts = {k: int(k == name) for k in KERNELS}
+        check_counts(f"[ops] scheduled_{name}", counts, want_counts)
+        want = case["plain"]()
+        pairs = list(zip(("y", "h_final"), got, want)) if name == "ssd_scan" else [("out", got, want)]
+        errs = {}
+        for what, g, wv in pairs:
+            if g.shape != wv.shape or not torch.isfinite(g.float()).all():
+                raise AssertionError(f"[ops] {name} {what}: shape {tuple(g.shape)} vs {tuple(wv.shape)} or not finite")
+            diff = (g.float() - wv.float()).abs()
+            tol = case["tol"]
+            if bool((diff > tol + tol * wv.float().abs()).any()):
+                raise AssertionError(f"[ops] {name} {what}: max |kernel - plain| {float(diff.max()):.3g} beyond "
+                                     f"atol = rtol = {tol}")
+            errs[what] = float(diff.max())
+        del got, want
+        row = {"shape": case["shape"], "launches": counts[name], "max_abs_err": max(errs.values()),
+               "host_ms_cold": host_call_ms(case["scheduled"], cold=True),
+               "host_ms_cached": host_call_ms(case["scheduled"], cold=False),
+               "host_ms_bare": host_call_ms(case["bare"], cold=False)}
+        out["kernels"][name] = row
+        torch.cuda.empty_cache()
+    print("[ops] each scheduled wrapper once on the card (launch counters reset just before, read just after: "
+          "one launch of its kernel, none of another), against its plain version; host ms per call, median of 5 "
+          "(call to return, the launch enqueued): cold = the DSE's search cache cleared first, cached = "
+          "repeated, bare = the kernel wrapper without the DSE")
+    print(f"    {'kernel':16s} {'shape':28s} {'launches':>8s} {'max|k-plain|':>12s} {'cold ms':>9s} "
+          f"{'cached ms':>9s} {'bare ms':>9s}")
+    for name, r in out["kernels"].items():
+        print(f"    {name:16s} {str(tuple(r['shape'])):28s} {r['launches']:>8d} {r['max_abs_err']:>12.3e} "
+              f"{r['host_ms_cold']:>9.3f} {r['host_ms_cached']:>9.4f} {r['host_ms_bare']:>9.4f}")
+    # the one knob the DSE sets: ssd_scan's heads per output block, against
+    # the kernel's own rule, device ms in a CUDA graph
+    cfg = get_config(SSD_ARCH)
+    Hs, P, Ns = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+    xb, sa, Bm, Cm = ssd_operands(1, Hs, LONG_PROMPT, P, Ns, torch.bfloat16, seed=22)
+    mod = importlib.import_module("repro_torch.kernels.ssd_scan")
+    rule = mod.heads_per_block(1, Hs, mod._lib().ssd_scan_chunks(LONG_PROMPT), mod._sms(DEV))
+    dse = ops._heads_per_block(ops._scan_schedule("ssd", 4, Hs, LONG_PROMPT, P * Ns), Hs)
+    knob = {"dse_heads": dse, "rule_heads": rule,
+            "dse_ms": graph_ms(lambda: ops.scheduled_ssd_scan(xb, sa, Bm, Cm), iters=50),
+            "rule_ms": graph_ms(lambda: ssd_scan(xb, sa, Bm, Cm), iters=50)}
+    print(f"[ops] ssd_scan (1, {LONG_PROMPT}) at {SSD_ARCH}'s width, device ms per call in a CUDA graph: the DSE's "
+          f"{dse} heads per output block {knob['dse_ms']:.5f}, the kernel's rule's {rule} {knob['rule_ms']:.5f}")
+    out["ssd_heads"] = knob
+    return out
+
+
+def phase_shard() -> dict:
+    """[shard]: qwen2.5-3b placed on a 1 x 1 mesh on the card by the port's
+    sharding rules, bitwise; constrain an identity; the autoshard choices of
+    every applicable cell on both production meshes."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.configs import ALL_ARCHS, SHAPES, cell_applicable
+    from repro_torch.distributed import ShardingRules, constrain, param_shardings, use_rules
+    from repro_torch.distributed.autoshard import best_rules
+    from repro_torch.launch.mesh import AbstractMesh, make_local_mesh, production_shape
+    from repro_torch.models.layers import map_specs
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_local_mesh()
+        cfg = get_config(LM_ARCH)
+        cell = SHAPES["train_4k"]
+        name, rules, _ = best_rules(cfg, mesh, global_batch=cell.global_batch, seq=cell.seq_len, kind=cell.kind)
+        lm = LM(cfg, generator=torch.Generator(device=DEV).manual_seed(0))
+        placements = dict(_leaves(param_shardings(map_specs(lambda sp: sp.axes, lm.param_specs()), rules)))
+        tree = dict(_leaves(lm.reference_tree(dict(lm.named_parameters()))))
+        placed = nbytes = 0
+        for path, full in tree.items():
+            dt = distribute_tensor(full, mesh, placements[path])
+            if not isinstance(dt, DTensor) or tuple(dt.placements) != placements[path] \
+                    or not torch.equal(dt.to_local(), full):
+                raise AssertionError(f"[shard] {path}: placed {dt.placements} is not the parameter bitwise")
+            placed += 1
+            nbytes += full.numel() * full.element_size()
+            del dt
+        x = torch.randn(4, 128, cfg.d_model, device=DEV, dtype=torch.bfloat16)
+        with use_rules(ShardingRules(mesh, rules.table)):
+            y = constrain(x, "batch", "seq", "embed")
+        torch.cuda.synchronize()
+        if not isinstance(y, DTensor) or not torch.equal(y.full_tensor(), x):
+            raise AssertionError("[shard] constrain on the card changed the values")
+        print(f"[shard] {LM_ARCH} at full width and depth on a 1 x 1 DeviceMesh (NCCL, {mesh.device_type}): "
+              f"{placed} stacked leaves, {nbytes / 2**30:.2f} GiB, placed by param_shardings under "
+              f"best_rules' '{name}' ({rules.table}), each local tensor bitwise the parameter; constrain "
+              f"(batch, seq, embed) an identity on values")
+        del lm, tree
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    chosen: dict = {}
+    for multi in (False, True):
+        amesh = AbstractMesh(*production_shape(multi))
+        for arch in ALL_ARCHS:
+            for shape, c in SHAPES.items():
+                if cell_applicable(get_config(arch), shape)[0]:
+                    chosen[f"{arch}/{shape}/{'multi' if multi else 'single'}"] = best_rules(
+                        get_config(arch), amesh, global_batch=c.global_batch, seq=c.seq_len, kind=c.kind)[0]
+    print(f"[shard] best_rules' strategy per applicable cell on (16, 16) and (2, 16, 16) (the reference's TPU v5e "
+          f"pod model; names only):")
+    for key, strat in chosen.items():
+        print(f"    {key:42s} {strat}")
+    return {"strategy": name, "leaves": placed, "bytes": nbytes, "chosen": chosen}
+
+
+# [dryrun]: the roofline CLI's two train cells, and the bound it states on
+# counted flops over need (launch/roofline.py: flops_ratio)
+DRYRUN_ARCHS = (LM_ARCH, SSD_ARCH)
+FLOPS_RATIO = (0.95, 2.0)
+
+
+def phase_dryrun() -> dict:
+    """[dryrun]: the roofline of each train_4k cell on the (16, 16) fake
+    mesh, in a subprocess, priced on the H100; its flops within
+    FLOPS_RATIO of the need."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.roofline import flops_ratio
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "roofline")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(ARGS.src))
+    out: dict = {}
+    for arch in DRYRUN_ARCHS:
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline", "--arch", arch, "--shape",
+                               "train_4k", "--out-dir", out_dir], env=env, capture_output=True, text=True,
+                              timeout=600)
+        for line in proc.stdout.splitlines():
+            print(f"    {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"[dryrun] roofline {arch}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        r = json.loads(open(os.path.join(out_dir, f"{arch}__train_4k.json")).read())
+        cfg, cell = get_config(arch), SHAPES["train_4k"]
+        rec_p = r["records"]["p"]
+        ratio_p = flops_ratio(rec_p["cost_analysis_flops"] * rec_p["chips"],
+                              cfg.replace(n_layers=r["protocol"]["p"]), cell)
+        ratio = flops_ratio(r["hlo_flops_global"], cfg, cell)
+        print(f"[dryrun] {arch} train_4k on (16, 16) ({r['chips']} fake ranks), strategy {r['strategy']}, remat "
+              f"{r['remat']}, {time.time() - t0:.1f} s: flops per chip p={r['protocol']['f_p']:.6g} "
+              f"2p={r['protocol']['f_2p']:.6g} full={r['flops_per_chip']:.6g}; argument bytes per chip "
+              f"p={rec_p['memory_analysis']['argument_size_bytes']}; collective bytes per chip by kind (2p) "
+              f"{r['collectives_by_kind_2p']}; H100 terms compute {r['compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['memory_s'] * 1e3:.3f} ms, collective {r['collective_s'] * 1e3:.3f} ms ({r['bound']}-bound); "
+              f"counted / need {ratio_p:.4f} at depth p, {ratio:.4f} extrapolated (bound {FLOPS_RATIO})")
+        if not (FLOPS_RATIO[0] <= ratio_p <= FLOPS_RATIO[1] and FLOPS_RATIO[0] <= ratio <= FLOPS_RATIO[1]):
+            raise AssertionError(f"[dryrun] {arch}: counted flops / need {ratio_p:.4f} (p), {ratio:.4f} "
+                                 f"(extrapolated) outside {FLOPS_RATIO}")
+        out[arch] = {"ratio_p": ratio_p, "ratio": ratio, **{k: r[k] for k in (
+            "strategy", "flops_per_chip", "bytes_per_chip", "collective_bytes_per_chip", "compute_s", "memory_s",
+            "collective_s", "bound", "model_to_hlo_ratio", "mfu_proxy")}}
+    return out
+
+
 # the Pallas kernel body each CUDA kernel replaces
 REPLACES = {
     "matmul_requant": "src/repro/kernels/matmul_requant.py:45",
@@ -3228,6 +3506,12 @@ def main() -> None:
         served = {arch: phase_serve(arch) for arch in (LM_ARCH, MOE_ARCH, SSD_ARCH, RG_ARCH)}
     if "train" in only:
         trained = phase_train()
+    if "ops" in only:
+        op_run = phase_ops()
+    if "shard" in only:
+        phase_shard()
+    if "dryrun" in only:
+        phase_dryrun()
     if only != set(PHASES):
         print(f"[only] {', '.join(ARGS.only)} passed; no JSON lines without every phase")
         return
@@ -3268,6 +3552,9 @@ def main() -> None:
         e["launches_train_grads"] = trained["launches_grads"][e["name"]]
         if e["name"] in trained["timing"]:
             e["backward"] = trained["timing"][e["name"]]
+        o = op_run["kernels"][e["name"]]  # the DSE-scheduled wrapper's run
+        e["launches_ops"] = o["launches"]
+        e["ops"] = {k: o[k] for k in ("shape", "max_abs_err", "host_ms_cold", "host_ms_cached", "host_ms_bare")}
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

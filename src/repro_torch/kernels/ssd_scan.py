@@ -265,14 +265,14 @@ class _SsdScan(torch.autograd.Function):
     may be absent (None)."""
 
     @staticmethod
-    def forward(ctx, xb, a, Bm, Cm):
+    def forward(ctx, xb, a, Bm, Cm, heads=None):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(xb, a, Bm, Cm)
-        return ssd_scan(xb, a, Bm, Cm)
+        return ssd_scan(xb, a, Bm, Cm, heads=heads)
 
     @staticmethod
     def backward(ctx, dy, dh_final):
-        return ssd_scan_backward(*ctx.saved_tensors, dy, dh_final)
+        return *ssd_scan_backward(*ctx.saved_tensors, dy, dh_final), None
 
 
 @functools.lru_cache(maxsize=None)
@@ -300,19 +300,22 @@ def ssd_scan(
     a: torch.Tensor,  # (B, H, T)
     Bm: torch.Tensor,  # (B, T, N)
     Cm: torch.Tensor,  # (B, T, N)
+    *,
+    heads: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(y (B, H, T, P), h_final (B, H, P, N))``, both float32.
 
     CUDA tensors launch the Hopper kernels (two or three, counted once in
-    ``ssd_scan.launches``); CPU tensors take :func:`ssd_scan_plain`.  Under
-    grad, with an input that needs a gradient, CUDA tensors go through
-    :class:`_SsdScan`: the same launch forward, :func:`ssd_scan_backward`
-    backward.
+    ``ssd_scan.launches``), with ``heads`` heads per output block (1..H;
+    ``None``: :func:`heads_per_block`'s rule); CPU tensors take
+    :func:`ssd_scan_plain`.  Under grad, with an input that needs a
+    gradient, CUDA tensors go through :class:`_SsdScan`: the same launch
+    forward, :func:`ssd_scan_backward` backward.
     """
     if xb.device.type == "cpu":
         return ssd_scan_plain(xb, a, Bm, Cm)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xb, a, Bm, Cm)):
-        return _SsdScan.apply(xb, a, Bm, Cm)
+        return _SsdScan.apply(xb, a, Bm, Cm, heads)
     _check_args(xb, a, Bm, Cm)
     if xb.device.type != "cuda" or any(t.device != xb.device for t in (a, Bm, Cm)):
         raise ValueError(
@@ -325,8 +328,11 @@ def ssd_scan(
     B, H, T, P = xb.shape
     if B > _GRID_Y_MAX or H > _GRID_Y_MAX:
         raise ValueError(f"B={B} and H={H} must be <= {_GRID_Y_MAX} (grid limit)")
-    heads = heads_per_block(B, H, _lib().ssd_scan_chunks(T), _sms(xb.device))
-    return _launch(xb, a, Bm, Cm, heads)
+    if heads is None:
+        heads = heads_per_block(B, H, _lib().ssd_scan_chunks(T), _sms(xb.device))
+    elif not 1 <= heads <= max(H, 1):
+        raise ValueError(f"heads={heads} per block outside 1..H={H}")
+    return _launch(xb, a, Bm, Cm, int(heads))
 
 
 def _launch(xb, a, Bm, Cm, heads: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -105,8 +105,9 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
     # every (b, s, k) is scattered, a dropped one onto a spare last row that
     # is cut off: no mask selects, so nothing waits on the host
     spare = E * B * C
-    src_for_slot = torch.full((spare + 1,), B * S, dtype=torch.int64, device=x.device)
-    src_for_slot.scatter_(0, torch.where(kept, dst, spare).reshape(-1), (b_idx * S + s_idx).reshape(-1))
+    src_for_slot = torch.full((spare + 1,), B * S, dtype=torch.int64, device=x.device).scatter(
+        0, torch.where(kept, dst, spare).reshape(-1), (b_idx * S + s_idx).reshape(-1)
+    )
     xpad = torch.cat([x.reshape(B * S, D), x.new_zeros((1, D))])
     dispatched = xpad[src_for_slot[:spare]].reshape(E, B * C, D)
 

@@ -98,7 +98,7 @@ from repro_torch.models.moe import moe_ffn, moe_params
 from repro_torch.models.rglru import rglru_block, rglru_decode_step, rglru_params, rglru_state_init
 from repro_torch.models.ssd import ssd_block, ssd_decode_step, ssd_params, ssd_state_init
 
-__all__ = ["LM", "StackSpec", "params_from_jax", "params_to_jax"]
+__all__ = ["LM", "StackSpec", "cache_axes", "param_specs", "params_from_jax", "params_to_jax"]
 
 
 @dataclass(frozen=True)
@@ -164,6 +164,50 @@ _REMAT_CONTEXT = {
 }
 
 
+def _block_specs(cfg: ModelConfig, btype: str) -> dict:
+    d = cfg.d_model
+    out: dict[str, Any] = {"norm1": ParamSpec((d,), ("embed",), "float32", init="zeros")}
+    if btype == "ssd":
+        out["ssd"] = ssd_params(cfg)
+        return out  # mamba2 blocks carry no separate MLP
+    if btype == "rglru":
+        out["rglru"] = rglru_params(cfg)
+    else:
+        out["attn"] = attn_mod.attention_params(cfg)
+    out["norm2"] = ParamSpec((d,), ("embed",), "float32", init="zeros")
+    if cfg.is_moe:
+        out["moe"] = moe_params(cfg)
+    else:
+        out["mlp"] = mlp_params(d, cfg.d_ff, cfg.activation, cfg.dtype)
+    return out
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's ``LM(cfg).param_specs()``, no tensor made: stacked
+    ``stack{i}`` leaves with a leading ``layers`` axis."""
+    specs: dict[str, Any] = {"embed": embed_params(cfg.vocab, cfg.d_model, cfg.dtype)}
+    if cfg.frontend_stub:
+        # modality frontend stub: a single projection from precomputed
+        # frame/patch embeddings
+        specs["frontend"] = ParamSpec((cfg.d_model, cfg.d_model), ("embed", None), cfg.dtype)
+    for i, st in enumerate(_plan_stacks(cfg)):
+        blk = {f"b{j}_{bt}": _block_specs(cfg, bt) for j, bt in enumerate(st.pattern)}
+        specs[f"stack{i}"] = _stack_specs(blk, st.repeats)
+    specs["final_norm"] = ParamSpec((cfg.d_model,), ("embed",), "float32", init="zeros")
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"), cfg.dtype)
+    return specs
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The reference's ``LM(cfg).cache_axes()``: logical-axes tuples
+    parallel to :meth:`LM.init_cache`."""
+    return {
+        f"stack{i}": {f"b{j}_{bt}": dict(_CACHE_AXES[bt]) for j, bt in enumerate(st.pattern)}
+        for i, st in enumerate(_plan_stacks(cfg))
+    }
+
+
 class _Params(nn.Module):
     """A nested dict of tensors, registered as (frozen) parameters."""
 
@@ -215,40 +259,10 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
     # Parameters
     # ------------------------------------------------------------------
-    def _block_specs(self, btype: str) -> dict:
-        cfg = self.cfg
-        d = cfg.d_model
-        out: dict[str, Any] = {"norm1": ParamSpec((d,), ("embed",), "float32", init="zeros")}
-        if btype == "ssd":
-            out["ssd"] = ssd_params(cfg)
-            return out  # mamba2 blocks carry no separate MLP
-        if btype == "rglru":
-            out["rglru"] = rglru_params(cfg)
-        else:
-            out["attn"] = attn_mod.attention_params(cfg)
-        out["norm2"] = ParamSpec((d,), ("embed",), "float32", init="zeros")
-        if cfg.is_moe:
-            out["moe"] = moe_params(cfg)
-        else:
-            out["mlp"] = mlp_params(d, cfg.d_ff, cfg.activation, cfg.dtype)
-        return out
-
     def param_specs(self) -> dict:
         """The reference's parameter tree: stacked ``stack{i}`` leaves with
-        a leading ``layers`` axis."""
-        cfg = self.cfg
-        specs: dict[str, Any] = {"embed": embed_params(cfg.vocab, cfg.d_model, cfg.dtype)}
-        if cfg.frontend_stub:
-            # modality frontend stub: a single projection from precomputed
-            # frame/patch embeddings
-            specs["frontend"] = ParamSpec((cfg.d_model, cfg.d_model), ("embed", None), cfg.dtype)
-        for i, st in enumerate(self.stacks):
-            blk = {f"b{j}_{bt}": self._block_specs(bt) for j, bt in enumerate(st.pattern)}
-            specs[f"stack{i}"] = _stack_specs(blk, st.repeats)
-        specs["final_norm"] = ParamSpec((cfg.d_model,), ("embed",), "float32", init="zeros")
-        if not cfg.tie_embeddings:
-            specs["lm_head"] = ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"), cfg.dtype)
-        return specs
+        a leading ``layers`` axis (:func:`param_specs`)."""
+        return param_specs(self.cfg)
 
     def param_shapes(self):
         """Tree of ``(shape, dtype name)`` parallel to :meth:`param_specs`."""
@@ -438,10 +452,7 @@ class LM(nn.Module):
 
     def cache_axes(self) -> dict:
         """Tree of logical-axes tuples parallel to :meth:`init_cache`."""
-        return {
-            f"stack{i}": {f"b{j}_{bt}": dict(_CACHE_AXES[bt]) for j, bt in enumerate(st.pattern)}
-            for i, st in enumerate(self.stacks)
-        }
+        return cache_axes(self.cfg)
 
     def _layer_caches(self, cache: dict) -> list[dict]:
         """Per-layer views (``{"k", "v", "pos"}`` or the rglru or ssd state

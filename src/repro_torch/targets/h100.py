@@ -25,13 +25,18 @@ card's best peak:**
 * ``cuda_core`` — the CUDA cores.  The CNN's exact convs run there in
   fp32 through cuDNN, TF32 off (:func:`repro_torch._device.resolve_device`):
   one FMA per lane per cycle, 128 lanes per SM.  The int8 GEMM
-  (``csrc/matmul_requant.cu``) runs there too, as ``__dp4a``: four int8
-  MACs per instruction at the 32-bit integer multiply-add rate, 64 per SM
-  per cycle (the CUDA C++ Programming Guide's throughput table), so 256
-  MACs per SM per cycle.  The scan kernels (``csrc/ssd_scan.cu``,
-  ``csrc/rglru_scan.cu``) run on these cores as well.
+  (``csrc/matmul_requant.cu``) runs there as ``__dp4a`` up to 512 blocks of
+  8 outputs, every CNN GEMM segment among them: four int8 MACs per
+  instruction at the 32-bit integer multiply-add rate, 64 per SM per cycle
+  (the CUDA C++ Programming Guide's throughput table), so 256 MACs per SM
+  per cycle.  Beyond 512 blocks its ``mma.sync m16n8k32`` branch computes
+  it on the int8 tensor cores.  The scan kernels (``csrc/ssd_scan.cu``,
+  ``csrc/rglru_scan.cu``) run on the CUDA cores as well.
 * ``tensor_core`` — the bf16 tensor cores, which ``flash_attention`` and
-  ``moe_gmm`` use (``mma.sync``, 64-row tiles).  No CNN op runs there.
+  ``moe_gmm`` use (``mma.sync``, 64-row tiles), declared at the bf16 rate.
+  No CNN op is dispatched there; ``repro_torch.kernels.ops`` schedules the
+  LM kernels' matmul and attention workloads, the int8 GEMM's among them,
+  on it.
 * ``aten`` — the fallback: one PyTorch operator per graph node, each its
   own kernel, unfused and unscheduled (the "plain TVM on the main CPU"
   of the paper).
@@ -99,8 +104,12 @@ class H100Spec:
     hbm_bytes_per_s: float = 3.35e12
     peak_flops_fp32: float = 67e12
     peak_flops_bf16: float = 989e12  # dense, tensor cores
-    peak_ops_int8: float = 1979e12  # dense, tensor cores (unused by the port)
+    peak_ops_int8: float = 1979e12  # dense, tensor cores: matmul_requant's mma.sync m16n8k32 branch
     launch_floor_s: float = 0.98e-6  # middle of the measured 0.84-1.12 us
+    # NVLink 4 (H100 SXM data sheet): 900 GB/s per GPU, both directions
+    # together; launch.roofline's collective rate.  A (16, 16) mesh all on
+    # NVLink is an idealisation, as the reference's uniform ICI torus is.
+    nvlink_bytes_per_s: float = 900e9
 
     @property
     def hbm_bytes_per_cycle(self) -> float:

@@ -45,7 +45,9 @@ assert {"repro_torch.backend.lower", "repro_torch.kernels.matmul_requant",
         "repro_torch.fuzz.shrink", "repro_torch.fuzz.__main__", "repro_torch.obs.__main__",
         "repro_torch.training.optimizer", "repro_torch.training.train_loop", "repro_torch.training.checkpoint",
         "repro_torch.training.fault_tolerance", "repro_torch.data.pipeline", "repro_torch.distributed.compression",
-        "repro_torch.launch.train"} <= set(names)
+        "repro_torch.launch.train", "repro_torch.kernels.ops", "repro_torch.distributed.sharding",
+        "repro_torch.distributed.autoshard", "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+        "repro_torch.launch.roofline"} <= set(names)
 """
 
 # the entry points, imported in a fresh interpreter
@@ -60,8 +62,25 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "
 assert not leaked, leaked
 """
 
+# the last reference modules' counterparts, imported in a fresh interpreter:
+# no jax, no repro, no fake process group (the dry-run's lives only in its
+# CLI), and no environment set
+_DISTRIBUTED_PROBE = """
+import os, sys
+env = dict(os.environ)
+import repro_torch.kernels.ops, repro_torch.distributed.sharding, repro_torch.distributed.autoshard
+import repro_torch.launch.mesh, repro_torch.launch.dryrun, repro_torch.launch.roofline
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+assert "torch.testing._internal.distributed.fake_pg" not in sys.modules
+assert dict(os.environ) == env
+import torch.distributed as dist
+assert not dist.is_initialized()
+"""
 
-@pytest.mark.parametrize("probe", [_PROBE, _ENTRY_PROBE], ids=["every-module", "lm-entry-points"])
+
+@pytest.mark.parametrize("probe", [_PROBE, _ENTRY_PROBE, _DISTRIBUTED_PROBE],
+                         ids=["every-module", "lm-entry-points", "distributed-and-launch"])
 def test_import_loads_no_jax_and_no_reference(probe):
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run(
