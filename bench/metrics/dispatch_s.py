@@ -1,0 +1,5 @@
+"""Host seconds of the dispatch call (the DP partitioner and the LOMA search)."""
+
+
+def read(run):
+    return run.dispatch_s

@@ -1,0 +1,7 @@
+"""95th percentile host-clock latency of every request of the window, in ms."""
+
+import numpy as np
+
+
+def read(run):
+    return float(np.percentile(run.latencies_s, 95)) * 1e3 if run.latencies_s else None
