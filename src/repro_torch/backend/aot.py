@@ -162,6 +162,8 @@ class AotModel:
         self._entries: dict[tuple, AotEntry] = {}
         self._lock = threading.Lock()
         self._dispatch_overhead: dict | None = None
+        self._span_name = f"aot.run:{compiled.graph.name}"  # the traced run's span, named once
+        self._span_attrs = {"memory": memory}
         # static accounting: cross-module boundaries in execution order,
         # mirroring the pipeline scheduler's transfer-at-consumer-start
         # derivation — with double buffering, boundary k's input DMA can
@@ -215,7 +217,6 @@ class AotModel:
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None:
-                obs.counter("aot.cache_hits").inc()
                 return entry
             obs.counter("aot.cache_misses").inc()
             with uncounted():
@@ -250,7 +251,8 @@ class AotModel:
             graph, compile_us = None, None
             if dev.type == "cuda":
                 try:
-                    graph = capture(fn, dev)
+                    with obs.span("aot.capture", cat="compile"):
+                        graph = capture(fn, dev)
                 except Exception as e:
                     raise AotCompileError(
                         f"whole-graph capture failed for {self.graph.name} on {self.target.name}: {e}"
@@ -371,19 +373,11 @@ class AotModel:
         call per (params, input signature) pays :meth:`warmup`; the
         outputs are copies, which no later run overwrites.
         """
-        coerced = {k: _as_input(v) for k, v in inputs.items()}
-        entry = self.warmup(params, coerced)
         tr = obs.get_tracer()
         if tr.enabled:
-            t0_us = tr.now_us()
-            try:
-                return self._run_entry(entry, coerced)
-            finally:
-                tr.complete(
-                    f"aot.run:{self.graph.name}", t0_us, cat="runtime",
-                    lane="run:aot", attrs={"memory": self.memory},
-                )
-        return self._run_entry(entry, coerced)
+            return self._run_traced(tr, params, inputs)
+        coerced = {k: _as_input(v) for k, v in inputs.items()}
+        return self._run_entry(self.warmup(params, coerced), coerced)
 
     def _run_entry(self, entry: AotEntry, coerced: dict) -> dict:
         with self._lock:  # the static inputs and the arena are single-owner state
@@ -392,6 +386,33 @@ class AotModel:
                 entry.inputs[k].copy_(v)
             out = entry.graph.replay() if entry.graph is not None else entry.run_fn()
             return {k: v.clone() for k, v in out.items()}
+
+    def _run_traced(self, tr, params: dict, inputs: dict) -> dict:
+        """:meth:`run`'s work in the same order, each phase a span on lane
+        ``run:aot`` inside ``aot.run:<graph>``: ``aot.prepare`` (coercion,
+        signature, entry lookup and the lock), ``aot.input_copy``,
+        ``aot.replay`` (asynchronous on the card: the launch, not the
+        device's work) and ``aot.output_clone``."""
+        t0 = tr.now_us()
+        try:
+            coerced = {k: _as_input(v) for k, v in inputs.items()}
+            entry = self.warmup(params, coerced)
+            with self._lock:
+                entry.calls += 1
+                t1 = tr.now_us()
+                for k, v in coerced.items():
+                    entry.inputs[k].copy_(v)
+                t2 = tr.now_us()
+                out = entry.graph.replay() if entry.graph is not None else entry.run_fn()
+                t3 = tr.now_us()
+                res = {k: v.clone() for k, v in out.items()}
+                t4 = tr.now_us()
+            for name, a, b in (("aot.prepare", t0, t1), ("aot.input_copy", t1, t2), ("aot.replay", t2, t3),
+                               ("aot.output_clone", t3, t4)):
+                tr.complete(name, a, cat="runtime", lane="run:aot", end_us=b)
+            return res
+        finally:
+            tr.complete(self._span_name, t0, cat="runtime", lane="run:aot", attrs=self._span_attrs)
 
     def verify(self, params: dict, inputs: dict) -> float:
         """Max |AOT - per-segment CompiledModel.run| over graph outputs

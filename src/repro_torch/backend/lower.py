@@ -91,14 +91,23 @@ def _fused_reference_fn(
     input_names: tuple[str, ...],
     output_name: str,
     anchor_impl: Callable | None = None,
+    lane: str | None = None,
 ):
     """One function evaluating the whole segment chain through the shared
     op library (bit-exact with the interpreter by construction).
     ``anchor_impl(params, *xs)`` overrides the first node's evaluation —
-    that is how the banded conv slots in under the same epilogue."""
+    that is how the banded conv slots in under the same epilogue.  With
+    tracing on, each node is a span ``node:<op>`` on ``lane`` carrying the
+    node's name: on the card it covers the node's launches, which is how
+    a device trace splits a segment's kernels into anchor and epilogue."""
+    span_names = [f"node:{nd.op}" for nd in nodes]
+    span_attrs = [{"name": nd.name} for nd in nodes]
 
     def fn(seg_params: dict, *xs):
         env = dict(zip(input_names, xs))
+        tr = obs.get_tracer()
+        if tr.enabled:
+            return traced(tr, seg_params, env)
         for i, nd in enumerate(nodes):
             args = [env[k] for k in nd.inputs]
             p = seg_params.get(nd.name, {})
@@ -106,6 +115,18 @@ def _fused_reference_fn(
                 env[nd.name] = anchor_impl(p, *args)
             else:
                 env[nd.name] = apply_node(nd, p, args)
+        return env[output_name]
+
+    def traced(tr, seg_params: dict, env: dict):
+        for i, nd in enumerate(nodes):
+            t0 = tr.now_us()
+            args = [env[k] for k in nd.inputs]
+            p = seg_params.get(nd.name, {})
+            if i == 0 and anchor_impl is not None:
+                env[nd.name] = anchor_impl(p, *args)
+            else:
+                env[nd.name] = apply_node(nd, p, args)
+            tr.complete(span_names[i], t0, cat="runtime", lane=lane, attrs=span_attrs[i])
         return env[output_name]
 
     return fn
@@ -284,12 +305,13 @@ def lower(
             sp.set(segment=seg.anchor.name, module=seg.module, route=route)
         obs.counter(f"lower.route.{route}").inc()
         meta: dict = {"pattern": seg.pattern}
+        lane = f"run:{seg.module}"  # the segment's own span lane (CompiledModel.run)
         if route == "tiled_conv":
             impl, block_oy = _tiled_conv_impl(seg.anchor, ksched, band_tiling)
-            fn = _fused_reference_fn(seg.nodes, inputs, out_name, anchor_impl=impl)
+            fn = _fused_reference_fn(seg.nodes, inputs, out_name, anchor_impl=impl, lane=lane)
             meta["block_oy"] = block_oy
         elif route == "pallas_gemm":
-            ref_fn = _fused_reference_fn(seg.nodes, inputs, out_name)
+            ref_fn = _fused_reference_fn(seg.nodes, inputs, out_name, lane=lane)
             fn = _gemm_fn(seg, ref_fn)
             if ksched is not None:
                 # the DSE's tile, as the TPU kernel's BlockSpecs took it
@@ -300,7 +322,7 @@ def lower(
                     "K": int(ksched.block_of("C", 1)),
                 }
         else:
-            fn = _fused_reference_fn(seg.nodes, inputs, out_name)
+            fn = _fused_reference_fn(seg.nodes, inputs, out_name, lane=lane)
         lowered.append(
             LoweredSegment(
                 index=i,

@@ -331,10 +331,10 @@ def _dispatch_dp(
         sp.set(positions=n, candidates=sum(len(c) for c in cands))
     stats0 = dict(planner.stats)
     with obs.span("dispatch.dse_flush", cat="compile") as sp:
-        planner.flush()
+        candidates = planner.flush()
         # cache hit/miss attribution for this dispatch: the planner is
         # shared across compiles, so report the delta, not the totals
-        sp.set(**{k: planner.stats[k] - stats0.get(k, 0) for k in planner.stats})
+        sp.set(candidates=candidates, **{k: planner.stats[k] - stats0.get(k, 0) for k in planner.stats})
     with obs.span("dispatch.resolve", cat="compile"):
         cands = _resolve_schedules(cands, planner, budget)
 

@@ -648,10 +648,12 @@ class SchedulePlanner:
             self._pending[key] = (workload, module, budget)
         return key
 
-    def flush(self) -> None:
-        """Evaluate all pending unique queries through the thread pool."""
+    def flush(self) -> int:
+        """Evaluate all pending unique queries through the thread pool;
+        returns the LOMA candidates the searches evaluated (counter
+        ``dse.candidates``)."""
         if not self._pending:
-            return
+            return 0
         items = list(self._pending.items())
         self._pending.clear()
 
@@ -668,8 +670,11 @@ class SchedulePlanner:
             self._results[key] = res
             self.stats["searched"] += 1
         obs_metrics.counter("dse.searched").inc(len(done))
+        candidates = sum(res.candidates_evaluated for _, res in done)
+        obs_metrics.counter("dse.candidates").inc(candidates)
         self._dirty = True
         self.save()
+        return candidates
 
     def get(self, workload: Workload, module: ExecutionModule, *, budget: int = 4000) -> ScheduleResult:
         """Result for a query (flushing pending work if necessary)."""

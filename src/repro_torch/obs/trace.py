@@ -144,6 +144,14 @@ class Tracer:
         self._thread_names: dict[int, str] = {}
 
     # -- time ------------------------------------------------------------
+    @property
+    def epoch_s(self) -> float:
+        """The ``time.perf_counter()`` second at which timestamps start:
+        a span at ``ts`` microseconds began at ``epoch_s + ts * 1e-6`` on
+        ``perf_counter``, the clock other traces (a device profile) can be
+        tied to."""
+        return self._epoch
+
     def now_us(self) -> float:
         """Microseconds since this tracer's epoch (trace timebase)."""
         return (time.perf_counter() - self._epoch) * 1e6
@@ -188,13 +196,15 @@ class Tracer:
         cat: str = "",
         lane: str | None = None,
         attrs: dict | None = None,
+        end_us: float | None = None,
     ) -> None:
         """Record a span that started at ``t0_us`` (from :meth:`now_us`)
-        and ends now — the manual begin/end pair for hot loops where even
-        a context-manager frame is too much."""
+        and ends now, or at ``end_us`` — the manual begin/end pair for hot
+        loops where even a context-manager frame is too much."""
         if not self.enabled:
             return
-        self._append(name, cat, t0_us, self.now_us() - t0_us, self._tid(lane), attrs)
+        end = self.now_us() if end_us is None else end_us
+        self._append(name, cat, t0_us, end - t0_us, self._tid(lane), attrs)
 
     def instant(self, name: str, cat: str = "", lane: str | None = None, **attrs) -> None:
         """A zero-duration marker event (divergences, cache decisions)."""
