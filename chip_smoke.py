@@ -53,19 +53,31 @@ failure:
    (``BEFORE_MS``, from ``PERF.md``'s kernel table); under each scan row,
    the device kernels one call issues, by ``torch.profiler``; and
    ``ssd_scan``'s time with each count of heads per output block, the
-   data behind the wrapper's ``heads_per_block``;
+   data behind the wrapper's ``heads_per_block``; ``conv``: the fused conv
+   ``conv_requant`` (one launch per int8 conv segment) at every conv layer
+   shape of MobileNetV1-0.25 and DS-CNN's 10x4 stride-2 first layer, batch
+   1 and 16, bit-exact with its plain version at band heights 0, 1, 3 and
+   OY, ReLU on and off, shifts 0, 1, 5 and 12, without bias and on a
+   strided view, one counted launch each; then device ms per call in a
+   CUDA graph beside the launch floor at its launch shape, the bound, the
+   banded executor with its eager epilogue that it replaced (``before``)
+   and cuDNN's conv with the epilogue (``library``, timed only), and
+   MobileNet's 27 layers summed;
 4. CNN path: the four MLPerf-Tiny nets x {gap9, diana, h100} (h100, the
    card's own target, registered explicitly) through
    ``repro_torch.core.dispatch`` -> ``repro_torch.backend.lower`` (default
    device) -> 4 requests through ``CompiledModel.run``, each output
-   bit-exact with the port's CPU interpreter, and the GEMM launch count
-   equal to (GEMM segments) x 4 requests; then the same requests through
+   bit-exact with the port's CPU interpreter, and the GEMM and fused conv
+   launch counts equal to (GEMM segments) x 4 requests and (fused conv
+   segments) x 4 requests, no other kernel launched; then the same requests through
    the whole-graph AOT executor (``compile_aot``, one CUDA graph) in both
    memory modes, ``xla`` and ``arena``: bit-exact with
    ``CompiledModel.run`` and the interpreter, a rerun of the first request
    exact (the arena reused), the same GEMM launch count under replay; for
    DAE and DS-CNN on gap9 and h100 the device kernels of one AOT ``xla``
-   run by name, with count and µs (profiler); and ms per request eager / AOT xla / AOT arena (host clock to
+   run by name, with count and µs (profiler); for each net on h100 the
+   device operations of one replay of the captured graph alone (its
+   nodes that run on the card, profiler); and ms per request eager / AOT xla / AOT arena (host clock to
    ``torch.cuda.synchronize()``, median of 5 after a warm-up); conv
    bands per request on h100 beside gap9's; on h100, one timed run per
    net: each segment's predicted cycles against its CUDA-event time in
@@ -76,7 +88,7 @@ failure:
    inputs in flight), per segment and with every lane chain a captured
    CUDA graph (``aot=True``); each streamed run repeated 5 times, every
    output bit-exact with ``CompiledModel.run`` (the first also with the
-   CPU interpreter) and the GEMM launches exact; µs per input sequential
+   CPU interpreter) and the GEMM and fused conv launches exact; µs per input sequential
    against streamed beside ``predicted_speedup()`` and the stream bound;
 6. ``[cnn-serve]``, ``benchmarks/serve_load.py`` on the card: DAE and
    DS-CNN x {gap9, ne16_octa, h100}, 96 requests offered open-loop
@@ -84,7 +96,8 @@ failure:
    ``ModelServer`` of 16 slots and 2 batches in flight, in ``mode="aot"``
    (one captured graph per batch shape) and ``mode="pipeline"``: every
    served row bit-exact with the sequential run, itself bit-exact with
-   the CPU interpreter; GEMM launches = GEMM segments x batches; every
+   the CPU interpreter; GEMM (fused conv) launches = GEMM (fused conv)
+   segments x batches; every
    request completed, none rejected; sequential and sustained requests
    per second, p50/p99 latency, capture ms per batch shape, the SLO
    verdict (which must be ok) and the serving thread's host ms per batch
@@ -112,7 +125,8 @@ failure:
    (``CompiledModel.run``, AOT, ``PipelinedModel.run`` and
    ``run_stream``, ``BatchedModel``) bit-exact with the CPU interpreter;
    the invariant coverage, the failures (any fails the phase), the
-   seconds, the GEMM launches and the distinct (M, K, N) of the GEMM
+   seconds, the GEMM and fused conv launches (each must be above 0) and
+   the distinct (M, K, N) of the GEMM
    segments reached, with how many have K or N not divisible by 4;
 9. LM parity: qwen2.5-3b, granite-moe-3b-a800m and mamba2-1.3b at full
    width, 2 layers, float32, a 16-token prefill, and recurrentgemma-2b at
@@ -227,8 +241,8 @@ failure:
    ``[ops]`` launches), the card line, and last the ``{"ok": true,
    "device": ...}`` line.
 
-``--only`` is a development aid: it runs the named phases of ``gemm``
-and ``kernels`` (3), ``cnn`` (4), ``pipeline`` (5), ``cnn-serve`` (6),
+``--only`` is a development aid: it runs the named phases of ``gemm``,
+``kernels`` and ``conv`` (3), ``cnn`` (4), ``pipeline`` (5), ``cnn-serve`` (6),
 ``calibrate`` (7), ``fuzz`` (8), ``lm`` (9), ``lm-bf16`` (10),
 ``prefill-long`` (11), ``serve`` (12), ``train`` (13), ``ops`` (14),
 ``shard`` (15) and ``dryrun`` (16), after the card
@@ -264,7 +278,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
-PHASES = ("gemm", "kernels", "cnn", "pipeline", "cnn-serve", "calibrate", "fuzz", "lm", "lm-bf16", "prefill-long",
+PHASES = ("gemm", "kernels", "conv", "cnn", "pipeline", "cnn-serve", "calibrate", "fuzz", "lm", "lm-bf16", "prefill-long",
           "serve", "train", "ops", "shard", "dryrun")
 CHECKOUT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 
@@ -332,6 +346,21 @@ DEV = torch.device("cuda")
 # only for an older tree driven with --src)
 MR = importlib.import_module("repro_torch.kernels.matmul_requant")
 SEGMENT = getattr(MR, "matmul_requant_f32", None)
+# the fused conv's module (None for a tree before it, driven with --src)
+try:
+    CR = importlib.import_module("repro_torch.kernels.conv_requant")
+except ModuleNotFoundError:
+    CR = None
+# [conv]: every distinct conv layer of MobileNetV1-0.25 (IY, IX, C, K, FY, FX,
+# stride, depthwise) and DS-CNN's 10x4 stride-2 first layer, at batch 1 and
+# at a served batch of 16
+CONV_SHAPES = [(96, 96, 3, 8, 3, 3, 2, False)] + [
+    shape
+    for c, k, hw, st in ((8, 16, 48, 1), (16, 32, 48, 2), (32, 32, 24, 1), (32, 64, 24, 2), (64, 64, 12, 1),
+                         (64, 128, 12, 2), (128, 128, 6, 1), (128, 256, 6, 2), (256, 256, 3, 1))
+    for shape in ((hw, hw, c, c, 3, 3, st, True), (hw // st, hw // st, c, k, 1, 1, 1, False))
+] + [(49, 10, 1, 64, 10, 4, 2, False)]
+CONV_BATCHES = (1, 16)
 NETS = ("MobileNet", "ResNet", "DSCNN", "DAE")
 TARGETS = ("gap9", "diana", "h100")  # h100 registered explicitly in main()
 REQUESTS = 4
@@ -348,8 +377,9 @@ SERVE_N, SERVE_BATCH, SERVE_DEPTH, SERVE_OFFERED_X = 96, 16, 2, 6.0
 FUZZ_SEEDS = 24
 FUZZ_TARGETS = ("h100", "gap9")
 KERNELS = ("matmul_requant", "flash_attention", "moe_gmm", "ssd_scan", "rglru_scan")
-# every source built: the five kernels and an empty kernel, the card's launch floor
-SOURCES = KERNELS + ("launch_floor",)
+# every source built: the five kernels, the fused conv of the CNN path (where
+# the tree driven has it) and an empty kernel, the card's launch floor
+SOURCES = tuple(n for n in KERNELS + ("conv_requant", "launch_floor") if (_build.CSRC / f"{n}.cu").exists())
 # H100 SXM data sheet: HBM3 bytes/s, dense int8 and bf16 tensor-core ops/s,
 # fp32 ops/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -599,6 +629,9 @@ def short_kernel_name(mangled: str) -> str | None:
     m = re.search(r"\d+(matmul_requant_(?:mma|gemv)_kernel)I([af])E", mangled)
     if m:
         return f"{m.group(1)}<{GEMM_TYPES[m.group(2)]}>"
+    m = re.search(r"\d+(conv_requant_kernel)ILb([01])E", mangled)
+    if m:
+        return f"{m.group(1)}<{'depthwise' if m.group(2) == '1' else 'dense'}>"
     return None
 
 
@@ -863,6 +896,134 @@ def phase_gemm_branches() -> list[dict]:
     return rows
 
 
+def conv_operands(shape, batch: int, seed: int):
+    """x (B, IY, IX, C), the HWIO weight and the bias, integer-valued
+    float32 on the card, as the lowering holds them."""
+    iy, ix, c, k, fy, fx, _, dw = shape
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-128, 128, (batch, iy, ix, c)).astype(np.float32)
+    w = rng.integers(-128, 128, (fy, fx, 1, c) if dw else (fy, fx, c, k)).astype(np.float32)
+    b = rng.integers(-3000, 3000, (w.shape[3],)).astype(np.float32)
+    return [torch.from_numpy(v).to(DEV) for v in (x, w, b)]
+
+
+def conv_before(x, w, b, stride: int, dw: bool, shift: int):
+    """The conv segment as the lowering ran it before the fused kernel (and
+    still runs a segment outside the kernel's pattern): the banded conv of
+    ``tiled_conv2d`` (an NCHW view, ``F.pad``, cuDNN), then the chain's
+    bias_add, requant and relu through the op library, one eager op each."""
+    from repro_torch.cnn.execute import apply_node
+    from repro_torch.core import Node
+    from repro_torch.kernels.tiled_conv import tiled_conv2d
+
+    y = tiled_conv2d(x, w, stride=stride, feature_groups=x.shape[-1] if dw else 1)
+    y = apply_node(Node("b", "bias_add", ("c",)), {"b": b}, [y])
+    y = apply_node(Node("q", "requant", ("b",)), {"shift": float(shift)}, [y])
+    return apply_node(Node("r", "relu", ("q",)), {}, [y])
+
+
+def conv_library(xpad, w_oihw, b, stride: int, groups: int, shift: int):
+    """PyTorch's own calls for the segment's function (cuDNN's conv with the
+    bias, on an input padded and laid out beforehand, then the epilogue in
+    two ops): the yardstick only, never on the port's path."""
+    y = F.conv2d(xpad, w_oihw, b, stride=stride, groups=groups)
+    return torch.clamp(torch.round(y / float(1 << shift)), 0, 127)
+
+
+def conv_equal(where: str, x, w, b, **kw) -> None:
+    """One counted launch of the fused conv, bit-exact with its plain version."""
+    before = CR.conv_requant.launches
+    got = CR.conv_requant(x, w, b, **kw)
+    torch.cuda.synchronize()
+    if CR.conv_requant.launches != before + 1:
+        raise AssertionError(f"{where}: {CR.conv_requant.launches - before} launches for one call")
+    want = CR.conv_requant_plain(x, w, b, **kw)
+    if got.dtype != torch.float32 or not torch.equal(got, want):
+        bad = (got != want).sum().item() if got.shape == want.shape else "shape"
+        raise AssertionError(f"{where} {kw}: {bad} values differ from the plain version")
+
+
+def mobilenet_conv_layers() -> list[tuple]:
+    """The 27 conv layers of MobileNetV1-0.25 in order, as CONV_SHAPES keys."""
+    out = []
+    for n in mlperf_tiny_networks()["MobileNet"].nodes:
+        if n.op in ("conv2d", "dwconv2d"):
+            a = {k: int(n.attr(k, 1) or 1) for k in ("OY", "OX", "C", "K", "FY", "FX", "stride")}
+            dw = n.op == "dwconv2d"
+            out.append((a["OY"] * a["stride"], a["OX"] * a["stride"], a["C"], a["C"] if dw else a["K"], a["FY"],
+                        a["FX"], a["stride"], dw))
+    return out
+
+
+def phase_conv() -> dict:
+    """[conv]: the fused conv on the card at every conv layer shape of
+    MobileNetV1-0.25 and DS-CNN's first, batch 1 and 16: bit-exact with its
+    plain version at every band height (0, 1, 3, OY), ReLU on and off, shift
+    0, 1, 5 and 12, no bias and a strided view, one counted launch each;
+    then device ms per call in a CUDA graph beside the launch floor at its
+    own launch shape, the bound, the banded executor with its eager
+    epilogue it replaced (``before``), and cuDNN's conv with the epilogue
+    (``library``, timed only)."""
+    if CR is None:
+        print("[conv] the tree driven has no fused conv kernel: skipped")
+        return {"rows": [], "checked": 0}
+    rows, checked = [], 0
+    print("[conv] conv_requant, device ms per call: kernel in a CUDA graph; floor = an empty kernel at its launch shape "
+          "in a CUDA graph; eager = launched from Python; plain = its plain version; before = the banded executor and "
+          "eager epilogue it replaced; library = cuDNN conv + bias, round, clamp on a pre-padded input; bound = "
+          "max(float32 bytes / 3.35 TB/s, 2 MACs / 1979 TOP/s)")
+    print(f"    {'B':>2s} {'IY':>3s} {'IX':>3s} {'C':>4s} {'K':>4s} {'F':>5s} {'s':>1s} {'dw':>2s} {'blocks':>6s} "
+          f"{'kernel':>9s} {'floor':>9s} {'eager':>9s} {'plain':>9s} {'before':>9s} {'library':>9s} {'bound':>9s}")
+    for shape in CONV_SHAPES:
+        iy, ix, c, k, fy, fx, stride, dw = shape
+        oy = -(-iy // stride)
+        for batch in CONV_BATCHES:
+            where = f"[conv] {shape} B={batch}"
+            x, w, b = conv_operands(shape, batch, seed=sum(shape[:6]) + batch)
+            geo = dict(stride=stride, depthwise=dw)
+            for block_oy in (0, 1, 3, oy):
+                for relu in (False, True):
+                    conv_equal(where, x, w, b, shift=5, relu=relu, block_oy=block_oy, **geo)
+                    checked += 1
+            for shift in (0, 1, 12):
+                conv_equal(where, x, w, b, shift=shift, **geo)
+            conv_equal(where, x, w, None, shift=5, relu=True, **geo)
+            conv_equal(where, x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3), w, b, shift=5, relu=True, **geo)
+            checked += 5
+            kern = lambda: CR.conv_requant(x, w, b, shift=5, relu=True, **geo)  # noqa: E731
+            before = lambda: conv_before(x, w, b, stride, dw, 5)  # noqa: E731
+            if not torch.equal(kern(), before()):
+                raise AssertionError(f"{where}: the fused conv differs from the banded executor")
+            (py0, py1), (px0, px1) = CR.same_padding(iy, stride, fy), CR.same_padding(ix, stride, fx)
+            xpad = F.pad(x.permute(0, 3, 1, 2), (px0, px1, py0, py1)).contiguous(memory_format=torch.channels_last)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous()
+            lib = lambda: conv_library(xpad, w_oihw, b, stride, c if dw else 1, 5)  # noqa: E731
+            blocks, threads = CR.conv_launch_shape(batch, iy, ix, c, k, fy, fx, stride=stride, depthwise=dw)
+            with _graphs.uncounted():
+                row = {"shape": list(shape[:7]), "depthwise": dw, "batch": batch, "blocks": blocks,
+                       "ms": graph_ms(kern), "launch_floor_ms": graph_ms(launch_floor(blocks, threads)),
+                       "eager_ms": eager_ms(kern),
+                       "plain_ms": graph_ms(lambda: CR.conv_requant_plain(x, w, b, shift=5, relu=True, **geo), 20),
+                       "before_ms": graph_ms(before), "library_ms": graph_ms(lib)}
+            macs = batch * oy * -(-ix // stride) * k * fy * fx * (1 if dw else c)
+            nbytes = 4 * (x.numel() + w.numel() + b.numel() + batch * oy * -(-ix // stride) * k)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * macs, INT8_OPS_S)
+            rows.append(row)
+            print(f"    {batch:>2d} {iy:>3d} {ix:>3d} {c:>4d} {k:>4d} {f'{fy}x{fx}':>5s} {stride:>1d} {'dw' if dw else '':>2s} "
+                  f"{blocks:>6d} {row['ms']:>9.5f} {row['launch_floor_ms']:>9.5f} {row['eager_ms']:>9.5f} "
+                  f"{row['plain_ms']:>9.5f} {row['before_ms']:>9.5f} {row['library_ms']:>9.5f} {row['bound_ms']:>9.6f}")
+    by = {(tuple(r["shape"]) + (r["depthwise"],), r["batch"]): r for r in rows}
+    layers = mobilenet_conv_layers()
+    for batch in CONV_BATCHES:
+        tot = {key: sum(by[s, batch][key] for s in layers) for key in ("ms", "launch_floor_ms", "before_ms",
+                                                                       "library_ms", "bound_ms")}
+        print(f"[conv] MobileNetV1-0.25's {len(layers)} conv layers at batch {batch}, ms summed: kernel {tot['ms']:.5f}, "
+              f"floor {tot['launch_floor_ms']:.5f}, before {tot['before_ms']:.5f}, library {tot['library_ms']:.5f}, "
+              f"bound {tot['bound_ms']:.6f}")
+    print(f"[conv] {checked} checks bit-exact with the plain version, one counted launch each")
+    return {"rows": rows, "checked": checked}
+
+
 def phase_gemm_segments() -> list[dict]:
     """DAE's GEMM segments on h100 as the lowering runs them: each (K, N)'s
     first ``LoweredSegment.fn`` on an (M, K) integer-valued float32 input at
@@ -955,9 +1116,51 @@ def net_request(g, seed: int = 0) -> dict:
 
 
 def bands_of(cm) -> int:
-    """F.conv2d calls per request: one per output band of each conv segment."""
+    """F.conv2d calls per request: one per output band of each conv segment
+    that keeps the banded executor (a fused conv segment is one launch)."""
     return sum(-(-int(ls.segment.anchor.attr("OY", 1) or 1) // ls.meta["block_oy"])
-               for ls in cm.segments if ls.route == "tiled_conv")
+               for ls in cm.segments if ls.route == "tiled_conv" and ls.meta.get("kernel") != "conv_requant")
+
+
+def device_busy_us(fn, calls: int = 3) -> float:
+    """Device µs per call of ``fn`` during which some operation of it ran:
+    the union of its device operations' intervals (profiler), mean of
+    ``calls`` calls after a warm-up.  Unlike their summed durations it
+    counts no time twice where a kernel launched early by programmatic
+    dependent launch waits beside its predecessor."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / calls
+
+
+def print_replay_nodes(where: str, entry, segments: int, convs: int) -> dict:
+    """The device operations of one replay of an AOT entry's captured graph
+    alone (its nodes that run on the card: kernels, copies and fills), by
+    the profiler, mean of 3 replays, with the device's busy time; the
+    launch counters untouched."""
+    replay = lambda: entry.graph.graph.replay()  # noqa: E731
+    kern = device_kernels(replay, calls=3)
+    busy = device_busy_us(replay)
+    nodes = sum(r["count"] for r in kern.values())
+    print(f"[cnn] {where}: the AOT graph's replay issues {nodes:.1f} device operations for {segments} segments "
+          f"({convs} fused conv segments); the device busy {busy:.2f} µs (their summed durations "
+          f"{sum(r['us'] for r in kern.values()):.2f} µs): "
+          + "; ".join(f"{nm} x{r['count']:.1f} {r['us']:.2f} µs"
+                      for nm, r in sorted(kern.items(), key=lambda kv: -kv[1]["us"])[:8]))
+    return {"nodes": nodes, "busy_us": busy, "by_name": kern}
 
 
 def phase_cnn_path() -> dict:
@@ -979,6 +1182,7 @@ def phase_cnn_path() -> dict:
             compile_s = time.perf_counter() - t0
             dev_params = params_to_torch(params, cm.device)
             gemm_segments = cm.routes().get("pallas_gemm", 0)
+            convs = fused_convs(cm)
             bands = bands_of(cm)
             # the main path: counts from 0 just before, read just after
             reset_counts()
@@ -991,7 +1195,8 @@ def phase_cnn_path() -> dict:
                 outs.append(out)
             counts = read_counts()
             launches = counts["matmul_requant"]
-            check_counts(f"{net}x{tgt}", counts, {**dict.fromkeys(counts, 0), "matmul_requant": launches})
+            conv_launches = counts.get("conv_requant", 0)
+            check_counts(f"{net}x{tgt}", counts, cnn_counts(gemm_segments, convs, REQUESTS))
             try:
                 check_outputs(f"{net}x{tgt}", outs, refs)
             except AssertionError:
@@ -1002,7 +1207,8 @@ def phase_cnn_path() -> dict:
                     f"{net}x{tgt}: {launches} GEMM kernel launches, expected "
                     f"{gemm_segments} segments x {REQUESTS} requests"
                 )
-            cell = {"net": net, "target": tgt, "launches": launches, "bands": bands}
+            cell = {"net": net, "target": tgt, "launches": launches, "bands": bands, "conv_segments": convs,
+                    "conv_launches": conv_launches}
             # the AOT path in each memory mode: warm-up (capture, uncounted),
             # then the requests, counts from 0 just before, read just after
             aot_line = []
@@ -1013,8 +1219,7 @@ def phase_cnn_path() -> dict:
                 aot_outs = [am.run(params, x) for x in requests]
                 torch.cuda.synchronize()
                 counts = read_counts()
-                check_counts(f"{net}x{tgt} AOT {memory}", counts,
-                             {**dict.fromkeys(counts, 0), "matmul_requant": gemm_segments * REQUESTS})
+                check_counts(f"{net}x{tgt} AOT {memory}", counts, cnn_counts(gemm_segments, convs, REQUESTS))
                 check_outputs(f"{net}x{tgt} AOT {memory}", aot_outs, refs)
                 for i, (a, e) in enumerate(zip(aot_outs, outs)):
                     if any(not torch.equal(a[k], e[k]) for k in e):
@@ -1023,21 +1228,26 @@ def phase_cnn_path() -> dict:
                 again = am.run(params, requests[0])
                 check_outputs(f"{net}x{tgt} AOT {memory} rerun", [again], refs[:1])
                 cell[f"launches_aot_{memory}"] = counts["matmul_requant"]
+                cell[f"conv_launches_aot_{memory}"] = counts.get("conv_requant", 0)
                 cell[f"aot_{memory}_capture_ms"] = entry.compile_us / 1e3
                 cell[f"aot_{memory}_ms"], runs = host_ms(lambda: am.run(params, requests[0]))
                 if memory == "xla" and (net, tgt) in BREAKDOWN_CELLS:
                     cell["replay_kernels"] = print_replay_kernels(f"{net} x {tgt}", lambda: am.run(params, requests[0]),
                                                                   gemm_segments)
+                if memory == "xla" and tgt == "h100":
+                    cell["replay_nodes"] = print_replay_nodes(f"{net} x {tgt}", entry, len(cm.segments), convs)
                 aot_line.append(f"{memory} capture {entry.compile_us / 1e3:.1f} ms"
                                 + (f", arena {entry.arena_elems} floats" if memory == "arena" else ""))
             cell["eager_ms"], eager_runs = host_ms(lambda: cm.run(dev_params, requests[0]))
             cells.append(cell)
             print(f"[path] {net:9s} x {tgt:5s}: routes {cm.routes()}, compile {compile_s:.2f} s, "
-                  f"bit-exact x{REQUESTS}, GEMM launches {launches}, conv bands/request {bands}, "
+                  f"bit-exact x{REQUESTS}, GEMM launches {launches}, fused conv launches {conv_launches} "
+                  f"({convs} segments x {REQUESTS}), conv bands/request {bands}, "
                   f"ms/request {' '.join(f'{t:.3f}' for t in req_ms)}")
             print(f"[cnn] {net:9s} x {tgt:5s}: AOT bit-exact with CompiledModel.run and the CPU interpreter in both "
                   f"memory modes x{REQUESTS} and a rerun, GEMM launches {cell['launches_aot_xla']} (xla), "
-                  f"{cell['launches_aot_arena']} (arena); {'; '.join(aot_line)}; ms per request (median of 5 "
+                  f"{cell['launches_aot_arena']} (arena), fused conv launches {cell['conv_launches_aot_xla']} (xla), "
+                  f"{cell['conv_launches_aot_arena']} (arena); {'; '.join(aot_line)}; ms per request (median of 5 "
                   f"after a warm-up, host clock to synchronize): eager {cell['eager_ms']:.3f}, AOT xla "
                   f"{cell['aot_xla_ms']:.3f}, AOT arena {cell['aot_arena_ms']:.3f}; eager runs "
                   f"{' '.join(f'{t:.3f}' for t in eager_runs)}")
@@ -1053,7 +1263,9 @@ def phase_cnn_path() -> dict:
           + "; ".join(f"{c['net']}x{c['target']} {c['eager_ms']:.3f} / {c['aot_xla_ms']:.3f} / {c['aot_arena_ms']:.3f}"
                       for c in cells))
     return {"cells": cells, "launches": sum(c["launches"] for c in cells),
-            "launches_aot": sum(c["launches_aot_xla"] + c["launches_aot_arena"] for c in cells)}
+            "launches_aot": sum(c["launches_aot_xla"] + c["launches_aot_arena"] for c in cells),
+            "conv_launches": sum(c["conv_launches"] for c in cells),
+            "conv_launches_aot": sum(c["conv_launches_aot_xla"] + c["conv_launches_aot_arena"] for c in cells)}
 
 
 def request_stream(g, n: int, seed: int = 0) -> list[dict]:
@@ -1094,6 +1306,7 @@ def phase_pipeline() -> dict:
             cm = lower(dispatch(g, tgt, budget=300))
             dev_params = params_to_torch(params, cm.device)
             gemms = cm.routes().get("pallas_gemm", 0)
+            convs = fused_convs(cm)
             refs = [cm.run(dev_params, x) for x in xs]
             check_outputs(f"[pipeline] {net}x{tgt} sequential", refs[:1], [cpu_first])
             seq_ms, _ = host_ms(lambda: [cm.run(dev_params, x) for x in xs], runs=PIPE_REPEATS)
@@ -1114,7 +1327,7 @@ def phase_pipeline() -> dict:
                     torch.cuda.synchronize()
                     times.append(time.perf_counter() - t0)
                     counts = read_counts()
-                    check_counts(where, counts, {**dict.fromkeys(counts, 0), "matmul_requant": gemms * PIPE_INPUTS})
+                    check_counts(where, counts, cnn_counts(gemms, convs, PIPE_INPUTS))
                     check_same(where, outs, refs)
                     launches += counts["matmul_requant"]
                 cell[f"stream_us_aot_{aot}"] = float(np.median(times)) * 1e6 / PIPE_INPUTS
@@ -1175,6 +1388,7 @@ def serve_round(cm, dev_params: dict, xs: list[dict], refs: list[dict], rate_rps
     counted from 0 after the warm-up; the serving thread's host ms by step
     (:func:`serve_host_ms`), timed from the warm-up on."""
     gemms = cm.routes().get("pallas_gemm", 0)
+    convs = fused_convs(cm)
     rng = np.random.default_rng(1)
     host = {"round": [], "launch": [], "finish": [], "resolve": []}
     with ModelServer(cm, dev_params, batch_slots=SERVE_BATCH, stream_depth=SERVE_DEPTH, queue_capacity=len(xs),
@@ -1199,7 +1413,7 @@ def serve_round(cm, dev_params: dict, xs: list[dict], refs: list[dict], rate_rps
     stats = srv.stats()
     where = f"[cnn-serve] {cm.graph.name}x{cm.target.name} {mode}"
     counts = read_counts()
-    check_counts(where, counts, {**dict.fromkeys(counts, 0), "matmul_requant": gemms * stats["batches"]})
+    check_counts(where, counts, cnn_counts(gemms, convs, stats["batches"]))
     check_same(where, outs, refs)
     if stats["completed"] != len(xs) or stats["rejected"] or not stats["drained"]:
         raise AssertionError(f"{where}: stats {stats}")
@@ -1360,11 +1574,13 @@ def phase_calibrate() -> dict:
               f"with the CPU interpreter under both; anchors moved: "
               + ("; ".join(f"{k} x{len(v)} ({' '.join(v)})" for k, v in moved.items()) or "none"))
     counts = read_counts()
-    check_counts("[calibrate]", counts, {**dict.fromkeys(counts, 0), "matmul_requant": counts["matmul_requant"]})
+    check_counts("[calibrate]", counts, with_zeros({k: counts[k] for k in ("matmul_requant", "conv_requant")
+                                                    if k in counts}))
     if counts["matmul_requant"] == 0:
         raise AssertionError("[calibrate] no matmul_requant launch: the dense sweep missed the GEMM")
-    print(f"[calibrate] {time.perf_counter() - t0:.1f} s in all; matmul_requant launches {counts['matmul_requant']}")
-    return {"launches": counts["matmul_requant"]}
+    print(f"[calibrate] {time.perf_counter() - t0:.1f} s in all; matmul_requant launches {counts['matmul_requant']}, "
+          f"conv_requant launches {counts.get('conv_requant', 0)}")
+    return {"launches": counts["matmul_requant"], "conv_launches": counts.get("conv_requant", 0)}
 
 
 @contextlib.contextmanager
@@ -1424,17 +1640,21 @@ def phase_fuzz() -> dict:
     print(f"[fuzz] seeds 0-{FUZZ_SEEDS - 1} x {', '.join(FUZZ_TARGETS)} and {len(corpus)} corpus cases "
           f"({', '.join(c['target'] for _, c in corpus)}), full battery on the card: {cases} cases in {seconds:.1f} s; "
           "invariant coverage " + " ".join(f"{iv}={n}" for iv, n in coverage.items())
-          + f"; failures {len(failures)}; matmul_requant launches {counts['matmul_requant']}")
+          + f"; failures {len(failures)}; matmul_requant launches {counts['matmul_requant']}, conv_requant launches "
+          f"{counts.get('conv_requant', 0)}")
     print(f"[fuzz] GEMM segment (M, K, N) reached: {len(shapes)} distinct, {len(odd)} with K or N not divisible by 4: "
           + " ".join(f"{m}x{k}x{n}" for m, k, n in sorted(shapes)))
     for where, f in failures:
         print(f"[fuzz] FAIL {where} target={f.target} invariant={f.invariant} stage={f.stage}: {f.message}")
-    check_counts("[fuzz]", counts, {**dict.fromkeys(counts, 0), "matmul_requant": counts["matmul_requant"]})
+    check_counts("[fuzz]", counts, with_zeros({k: counts[k] for k in ("matmul_requant", "conv_requant") if k in counts}))
     if failures:
         raise AssertionError(f"[fuzz] {len(failures)} failures")
     if counts["matmul_requant"] == 0:
         raise AssertionError("[fuzz] no matmul_requant launch: the fuzz graphs' dense heads missed the GEMM")
-    return {"launches": counts["matmul_requant"]}
+    if counts.get("conv_requant", 1) == 0:
+        raise AssertionError("[fuzz] no conv_requant launch: the fuzz graphs' convs missed the fused conv")
+    return {"launches": counts["matmul_requant"], "conv_launches": counts.get("conv_requant", 0), "cases": cases,
+            "failures": len(failures)}
 
 
 def off_by_one(x: torch.Tensor) -> torch.Tensor:
@@ -1952,13 +2172,32 @@ def expected_counts(cfg, prefills: int, decode_steps: int) -> dict[str, int]:
     rglru layer per prefill call (decode is plain torch there), moe_gmm
     three times per MoE layer per prefill call and per decode step."""
     n = layer_kinds(cfg)
-    return {
-        "matmul_requant": 0,
+    return with_zeros({
         "flash_attention": n["attn"] * prefills,
         "moe_gmm": 3 * n["moe"] * (prefills + decode_steps),
         "ssd_scan": n["ssd"] * prefills,
         "rglru_scan": n["rglru"] * prefills,
-    }
+    })
+
+
+def with_zeros(want: dict[str, int]) -> dict[str, int]:
+    """``want`` over every counted kernel: 0 launches of each it does not name."""
+    return {**dict.fromkeys(read_counts(), 0), **want}
+
+
+def cnn_counts(gemms: int, convs: int, runs: int) -> dict[str, int]:
+    """The launches of ``runs`` runs of a CNN: one GEMM per GEMM segment,
+    one fused conv per fused conv segment (where the tree counts it), and
+    nothing else."""
+    want = {"matmul_requant": gemms * runs}
+    if "conv_requant" in read_counts():
+        want["conv_requant"] = convs * runs
+    return with_zeros(want)
+
+
+def fused_convs(cm) -> int:
+    """The conv segments lowered to the fused conv kernel."""
+    return sum(ls.meta.get("kernel") == "conv_requant" for ls in cm.segments)
 
 
 def check_counts(where: str, got: dict[str, int], want: dict[str, int]) -> None:
@@ -2926,9 +3165,8 @@ def expected_train_counts(cfg, steps: int) -> tuple[dict[str, int], dict[str, in
     rglru_scan one launch per backward."""
     n = layer_kinds(cfg)
     f = 2 if cfg.remat != "none" else 1
-    launches = {"matmul_requant": 0, "flash_attention": f * n["attn"] * steps,
-                "moe_gmm": (3 * f + 6) * n["moe"] * steps, "ssd_scan": f * n["ssd"] * steps,
-                "rglru_scan": (f + 1) * n["rglru"] * steps}
+    launches = with_zeros({"flash_attention": f * n["attn"] * steps, "moe_gmm": (3 * f + 6) * n["moe"] * steps,
+                           "ssd_scan": f * n["ssd"] * steps, "rglru_scan": (f + 1) * n["rglru"] * steps})
     calls = {"flash_attention_backward": n["attn"] * steps, "moe_gmm_backward": 3 * n["moe"] * steps,
              "ssd_scan_backward": n["ssd"] * steps, "rglru_scan_backward": n["rglru"] * steps}
     return launches, calls
@@ -3266,7 +3504,7 @@ def phase_ops() -> dict:
         got = case["scheduled"]()
         torch.cuda.synchronize()
         counts = read_counts()
-        want_counts = {k: int(k == name) for k in KERNELS}
+        want_counts = with_zeros({name: 1})
         check_counts(f"[ops] scheduled_{name}", counts, want_counts)
         want = case["plain"]()
         pairs = list(zip(("y", "h_final"), got, want)) if name == "ssd_scan" else [("out", got, want)]
@@ -3477,6 +3715,8 @@ def main() -> None:
         rglru = phase_rglru_kernel()
         rglru_rows = phase_rglru_timing()
         rg_flash_rows = phase_rg_flash_timing()
+    if "conv" in only:
+        conv = phase_conv()
     if "cnn" in only:
         cnn = phase_cnn_path()
     if "pipeline" in only:
@@ -3555,6 +3795,13 @@ def main() -> None:
         o = op_run["kernels"][e["name"]]  # the DSE-scheduled wrapper's run
         e["launches_ops"] = o["launches"]
         e["ops"] = {k: o[k] for k in ("shape", "max_abs_err", "host_ms_cold", "host_ms_cached", "host_ms_bare")}
+    big = max(conv["rows"], key=lambda r: r["ms"] if r["batch"] == 1 else 0.0, default=None)  # slowest batch-1 layer
+    entries += [] if big is None else [{"name": "conv_requant", "route": "cuda", "source": "src/repro_torch/kernels/csrc/conv_requant.cu",
+                    "replaces": None, "launches": cnn["conv_launches"], "checks": conv["checked"],
+                    **{k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "eager_ms",
+                                           "before_ms", "launch_floor_ms")},
+                    "launches_aot": cnn["conv_launches_aot"], "launches_calibrate": calib["conv_launches"],
+                    "launches_fuzz": fuzz["conv_launches"], "shapes": conv["rows"]}]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

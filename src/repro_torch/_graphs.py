@@ -14,7 +14,7 @@ and copy new data into them between replays.
   ``torch.cuda.graphs`` requires: that loads every kernel's library and
   lets cuBLAS and cuDNN pick their algorithms outside the capture;
 * records, during the capture, how far each kernel wrapper's
-  ``launches`` counter moved (the five port kernels of
+  ``launches`` counter moved (the six port kernels of
   :data:`COUNTED`), then puts every counter back where it stood before
   the warm-up (:func:`uncounted`): a capture launches nothing that a
   user asked for;
@@ -36,6 +36,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.kernels.conv_requant import conv_requant
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul_requant import matmul_requant
 from repro_torch.kernels.moe_gmm import moe_gmm
@@ -45,7 +46,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 __all__ = ["COUNTED", "CapturedGraph", "GraphCaptureError", "add_launches", "capture", "launch_counts", "uncounted"]
 
 # the kernel wrappers that count their launches in ``<wrapper>.launches``
-COUNTED = (matmul_requant, flash_attention, moe_gmm, ssd_scan, rglru_scan)
+COUNTED = (matmul_requant, conv_requant, flash_attention, moe_gmm, ssd_scan, rglru_scan)
 
 
 class GraphCaptureError(RuntimeError):

@@ -4,10 +4,15 @@ The port of ``repro.backend.lower``.  Each
 :class:`~repro_torch.core.dispatcher.MappedSegment` becomes ONE fused
 executor, a Python function over tensors on the model's device:
 
-* **conv / dwconv anchors** (route ``tiled_conv``) run the banded conv of
-  :mod:`repro_torch.kernels.tiled_conv`: the winning LOMA OY tile becomes
-  the band size (the L1-resident output stripe), and the bias/requant/relu
-  chain follows as the segment epilogue.
+* **conv / dwconv anchors** (route ``tiled_conv``): the winning LOMA OY
+  tile is the segment's output-row stripe (the L1-resident band,
+  ``meta["block_oy"]``).  An int8 anchor (``elem_bytes == 1``) whose chain
+  is exactly [bias_add,] plain-shift requant[, relu] runs the hand-written
+  Hopper conv :func:`repro_torch.kernels.conv_requant.conv_requant`, with
+  the epilogue in registers, in one launch per segment
+  (``meta["kernel"] == "conv_requant"``); any other conv segment runs the
+  banded conv of :mod:`repro_torch.kernels.tiled_conv` with its chain
+  through the op library (``meta["kernel"] == "banded"``).
 * **int8 dense anchors with a plain-shift requant epilogue** (route
   ``pallas_gemm``, the reference's name kept so ``routes()`` compare key
   for key) run the hand-written Hopper int8 GEMM through its segment
@@ -43,6 +48,8 @@ from repro_torch.core import (
     Node,
     schedule_from_result,
 )
+from repro_torch.kernels.conv_requant import conv_requant
+from repro_torch.kernels.conv_requant import supports as conv_supports
 from repro_torch.kernels.matmul_requant import matmul_requant_f32
 from repro_torch.kernels.tiled_conv import tiled_conv2d
 
@@ -148,6 +155,72 @@ def _tiled_conv_impl(anchor: Node, ksched: KernelSchedule | None, band_tiling: b
         return tiled_conv2d(x, p["w"], stride=stride, block_oy=block_oy, feature_groups=groups)
 
     return impl, block_oy
+
+
+# the epilogues the fused conv kernel computes after its anchor
+_FUSED_CHAINS = (["requant"], ["bias_add", "requant"], ["requant", "relu"], ["bias_add", "requant", "relu"])
+
+
+def _fused_conv(seg: MappedSegment, inputs: tuple[str, ...]) -> bool:
+    """Whether a ``tiled_conv`` segment maps onto the fused conv kernel: an
+    int8 anchor (a missing ``elem_bytes`` means an unknown dtype), one
+    input, and a chain of exactly [bias_add,] requant without folded
+    ``scale``/``addend`` attrs [, relu].  Both conv ops qualify by their
+    groups: ``conv2d`` has 1 and ``dwconv2d`` C; the kernel must take the
+    filter (:func:`~repro_torch.kernels.conv_requant.supports`)."""
+    anchor = seg.anchor
+    depthwise = anchor.op == "dwconv2d"
+    fy, fx = (int(anchor.attr(k, 1) or 1) for k in ("FY", "FX"))
+    if not conv_supports(fy, fx, 1 if depthwise else int(anchor.attr("C", 1) or 1), depthwise=depthwise):
+        return False
+    eb = anchor.attr("elem_bytes", None)
+    chain = [n.op for n in seg.nodes[1:]]
+    if eb is None or int(eb) != 1 or len(inputs) != 1 or chain not in _FUSED_CHAINS:
+        return False
+    requant = next(n for n in seg.nodes if n.op == "requant")
+    return not ("scale" in requant.attrs or "addend" in requant.attrs)
+
+
+def _conv_fn(seg: MappedSegment, block_oy: int, ref_fn: Callable, lane: str):
+    """conv/dwconv(+bias)+requant(+relu) as one launch of the Hopper conv.
+
+    Activations are integer-valued inside int8 range by the
+    integerized-graph contract, as for the GEMM (:func:`_gemm_fn`); the
+    kernel reads them and the HWIO weight as stored and writes float32
+    NHWC, so the segment issues that launch and nothing else (no pad,
+    permute or epilogue kernel).  A run-time requant ``scale``/``addend``,
+    or a shift the kernel's epilogue does not model (not an integer in
+    [0, 31]), evaluates ``ref_fn`` — the segment's banded executor with its
+    chain — instead: that is the segment's semantics, not a device
+    fallback.  With tracing on, the launch is one ``node:<anchor op>``
+    span on ``lane`` carrying the anchor's name."""
+    anchor = seg.anchor
+    stride = int(anchor.attr("stride", 1) or 1)
+    depthwise = anchor.op == "dwconv2d"
+    relu = seg.nodes[-1].op == "relu"
+    bias_node = seg.nodes[1] if seg.nodes[1].op == "bias_add" else None
+    requant_node = next(n for n in seg.nodes if n.op == "requant")
+    attr_shift = requant_node.attr("shift", None)
+    default_shift = 5.0 if attr_shift is None else float(attr_shift)
+    span_name, span_attrs = f"node:{anchor.op}", {"name": anchor.name}
+
+    def fn(seg_params: dict, x):
+        rp = seg_params.get(requant_node.name, {})
+        shift = float(rp.get("shift", default_shift))
+        if "scale" in rp or "addend" in rp or not (shift.is_integer() and 0 <= shift <= 31):
+            return ref_fn(seg_params, x)
+        if x.dtype != torch.float32:
+            x = x.to(torch.float32)  # as the reference's jnp.asarray(x, jnp.float32)
+        bias = seg_params[bias_node.name]["b"] if bias_node is not None else None
+        tr = obs.get_tracer()
+        t0 = tr.now_us() if tr.enabled else 0.0
+        y = conv_requant(x, seg_params[anchor.name]["w"], bias, stride=stride, depthwise=depthwise,
+                         shift=int(shift), relu=relu, block_oy=block_oy)
+        if tr.enabled:
+            tr.complete(span_name, t0, cat="runtime", lane=lane, attrs=span_attrs)
+        return y
+
+    return fn
 
 
 def _gemm_fn(seg: MappedSegment, ref_fn: Callable):
@@ -310,6 +383,12 @@ def lower(
             impl, block_oy = _tiled_conv_impl(seg.anchor, ksched, band_tiling)
             fn = _fused_reference_fn(seg.nodes, inputs, out_name, anchor_impl=impl, lane=lane)
             meta["block_oy"] = block_oy
+            fused = _fused_conv(seg, inputs)
+            if fused:
+                fn = _conv_fn(seg, block_oy, fn, lane)
+            # the counter exists, at 0 if need be, wherever a conv is lowered
+            obs.counter("lower.conv.fused").inc(int(fused))
+            meta["kernel"] = "conv_requant" if fused else "banded"
         elif route == "pallas_gemm":
             ref_fn = _fused_reference_fn(seg.nodes, inputs, out_name, lane=lane)
             fn = _gemm_fn(seg, ref_fn)

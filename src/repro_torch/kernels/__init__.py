@@ -21,12 +21,18 @@
 * :func:`rglru_scan` — the RG-LRU linear recurrence, a hand-written CUDA
   kernel (``csrc/rglru_scan.cu``) in place of the reference's Pallas
   kernel, with :func:`rglru_scan_plain` beside it;
+* :func:`conv_requant` — an int8 SAME conv (groups 1 or C) with the
+  bias/requant/ReLU epilogue in registers, a hand-written CUDA kernel
+  (``csrc/conv_requant.cu``, one launch per conv segment of the CNN path;
+  it replaces no Pallas kernel), with :func:`conv_requant_plain` beside it;
 * :func:`tiled_conv2d` — the banded SAME conv (plain ``F.conv2d`` per
-  band, as the reference's is plain ``lax.conv_general_dilated``);
+  band, as the reference's is plain ``lax.conv_general_dilated``), for
+  the conv segments the fused kernel does not cover;
 * :mod:`.ref` — plain torch oracles.
 """
 
 from . import ref
+from .conv_requant import conv_requant, conv_requant_plain
 from .flash_attention import flash_attention, flash_attention_plain
 from .matmul_requant import (
     matmul_requant,
@@ -41,6 +47,8 @@ from .tiled_conv import tiled_conv2d
 
 __all__ = [
     "ref",
+    "conv_requant",
+    "conv_requant_plain",
     "flash_attention",
     "flash_attention_plain",
     "matmul_requant",

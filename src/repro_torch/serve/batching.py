@@ -12,7 +12,8 @@ This is sound because every op of the segment executors treats axis 0 as
 independent rows: :func:`repro_torch.cnn.execute.apply_node` (convs,
 pools and the ``dense`` flatten ``x.reshape(x.shape[0], -1)`` act per
 row, elementwise ops broadcast over trailing axes, ``concat`` joins the
-last axis), the banded conv (bands split OY, never N), and the GEMM route
+last axis), the banded conv (bands split OY, never N), the fused conv
+route (one block row of its grid per batch row), and the GEMM route
 (``a8 = x.reshape(x.shape[0], -1)``), where the rows become the GEMM's M:
 ``matmul_requant`` runs at M = B.  Per-request outputs therefore stay
 bit-exact with ``CompiledModel.run`` one request at a time (held by

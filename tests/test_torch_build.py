@@ -26,8 +26,9 @@ def csrc_copy(tmp_path):
 
 
 def test_every_kernel_is_keyed_and_the_shared_header_is_seen():
-    # the five kernels, and the empty kernel that chip_smoke.py times as the launch floor
-    assert set(KERNELS) == {"flash_attention", "launch_floor", "matmul_requant", "moe_gmm", "rglru_scan", "ssd_scan"}
+    # the six kernels, and the empty kernel that chip_smoke.py times as the launch floor
+    assert set(KERNELS) == {"conv_requant", "flash_attention", "launch_floor", "matmul_requant", "moe_gmm",
+                            "rglru_scan", "ssd_scan"}
     for name in KERNELS:
         deps = {p.name for p in _build.local_includes(_build.CSRC / f"{name}.cu")}
         assert deps == ({"mma_sm90.cuh"} if name in TENSOR_CORE else set()), name

@@ -1,6 +1,8 @@
 """The port on the CUDA card: the Hopper kernels against their plain
 versions (the GEMM's segment entry also on arena views and fractional
-inputs, and one launch per GEMM segment; the bf16 tensor-core paths also at ragged head dims and
+inputs, and one launch per GEMM segment; the fused conv at every conv layer
+shape of MobileNetV1-0.25 and DS-CNN's first, one launch per conv segment on
+h100; the bf16 tensor-core paths also at ragged head dims and
 lengths, on misaligned rows and on rows with no valid key), one net through the CNN main path bit-exact, a 2-layer LM
 whose prefill goes through the flash kernel, the two scans over many
 time chunks at full width (``rglru_scan`` on both sides of its short-T
@@ -18,6 +20,8 @@ from repro_torch.cnn import execute_graph, init_graph_params, mlperf_tiny_networ
 from repro_torch.core import dispatch
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import (
+    conv_requant,
+    conv_requant_plain,
     flash_attention,
     flash_attention_plain,
     matmul_requant,
@@ -247,6 +251,125 @@ def test_dae_aot_replay_bit_exact_with_exact_launches(cuda, memory):
         for out, ref in zip(outs, refs):
             for k in ref:
                 assert torch.equal(out[k].cpu(), ref[k]), (tgt, k)
+
+
+# the fused conv (conv_requant): every distinct conv layer of MobileNetV1-0.25
+# (IY, IX, C, K, FY, FX, stride, depthwise) and DS-CNN's 10x4 stride-2 first layer
+CONV_SHAPES = [(96, 96, 3, 8, 3, 3, 2, False)] + [
+    shape
+    for c, k, hw, st in ((8, 16, 48, 1), (16, 32, 48, 2), (32, 32, 24, 1), (32, 64, 24, 2), (64, 64, 12, 1),
+                         (64, 128, 12, 2), (128, 128, 6, 1), (128, 256, 6, 2), (256, 256, 3, 1))
+    for shape in ((hw, hw, c, c, 3, 3, st, True), (hw // st, hw // st, c, k, 1, 1, 1, False))
+] + [(49, 10, 1, 64, 10, 4, 2, False)]
+
+
+def _conv_equal(x, w, b, **kw):
+    before = conv_requant.launches
+    got = conv_requant(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert conv_requant.launches == before + 1
+    want = conv_requant_plain(x, w, b, **kw)
+    assert got.dtype == torch.float32 and torch.equal(got, want), kw
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_requant_matches_plain_version(cuda, shape, batch):
+    iy, ix, c, k, fy, fx, stride, dw = shape
+    rng = np.random.default_rng(sum(shape[:6]) + batch)
+    x = torch.from_numpy(rng.integers(-128, 128, (batch, iy, ix, c)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128, 128, (fy, fx, 1, c) if dw else (fy, fx, c, k)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.integers(-3000, 3000, (w.shape[3],)).astype(np.float32)).to(cuda)
+    oy = -(-iy // stride)
+    for block_oy in (0, 1, 3, oy):
+        for relu in (False, True):
+            _conv_equal(x, w, b, stride=stride, depthwise=dw, shift=5, relu=relu, block_oy=block_oy)
+    for shift in (0, 1, 12):  # no shift (clips at both ends), ties at every odd sum, large sums
+        _conv_equal(x, w, b, stride=stride, depthwise=dw, shift=shift)
+    _conv_equal(x, w, None, stride=stride, depthwise=dw, shift=7, relu=True)
+    # NHWC with W outermost in memory, as a strided view
+    view = x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    _conv_equal(view, w, b, stride=stride, depthwise=dw, shift=5, relu=True)
+
+
+def test_conv_requant_fractions_and_chunked_channels(cuda):
+    """Fractional operands inside int8 range truncate toward zero as the
+    plain version's casts do; a dense conv whose weights exceed the
+    kernel's shared memory is staged in chunks of input channels."""
+    rng = np.random.default_rng(9)
+    for (iy, c, k, f) in ((12, 40, 24, 3), (5, 700, 40, 3)):
+        x = np.clip(rng.integers(-128, 128, (2, iy, iy, c)) + rng.uniform(-0.99, 0.99, (2, iy, iy, c)), -128.99, 127.99)
+        w = np.clip(rng.integers(-128, 128, (f, f, c, k)) + rng.uniform(-0.99, 0.99, (f, f, c, k)), -128.99, 127.99)
+        b = rng.integers(-3000, 3000, (k,))
+        xt, wt, bt = (torch.from_numpy(v.astype(np.float32)).to(cuda) for v in (x, w, b))
+        _conv_equal(xt, wt, bt, stride=1, shift=9, relu=True)
+        _conv_equal(xt, wt, bt, stride=2, shift=9, block_oy=2)
+
+
+@pytest.mark.parametrize("C,K,depthwise", [(5, 6, False), (8, 12, False), (6, 6, True), (8, 8, True), (3, 2, False)])
+def test_conv_requant_ragged_channels_and_misaligned_input(cuda, C, K, depthwise):
+    """Channel counts that are no multiple of four take the kernel's
+    element-wise loads; so does an input one float off 16 bytes, as an
+    arena view may be."""
+    rng = np.random.default_rng(C * K)
+    n = 2 * 9 * 7 * C
+    flat = torch.from_numpy(rng.integers(-128, 128, (n + 1,)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128, 128, (3, 3, 1, C) if depthwise else (3, 3, C, K)).astype(np.float32))
+    w = w.to(cuda)
+    b = torch.from_numpy(rng.integers(-3000, 3000, (w.shape[3],)).astype(np.float32)).to(cuda)
+    for x in (flat[:n].view(2, 9, 7, C), flat[1:].view(2, 9, 7, C)):
+        for stride in (1, 2):
+            _conv_equal(x, w, b, stride=stride, depthwise=depthwise, shift=6, relu=True)
+            _conv_equal(x, w, b, stride=stride, depthwise=depthwise, shift=3, block_oy=2)
+
+
+@pytest.mark.parametrize("net", ["MobileNet", "DSCNN"])
+def test_conv_segments_launch_once_each_on_h100(cuda, net):
+    """On the card's own target every conv segment of the net is one
+    launch of the fused conv, eagerly and under AOT replay, bit-exact
+    with the CPU interpreter."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.backend import compile_aot
+    from repro_torch.targets import make_h100_target
+
+    g = mlperf_tiny_networks()[net]
+    params = init_graph_params(g)
+    x = {k: np.random.default_rng(2).integers(-128, 128, s).astype(np.float32) for k, s in g.inputs.items()}
+    ref = execute_graph(g, params, x, device="cpu")
+    cm = lower(dispatch(g, make_h100_target(), budget=300))
+    fused = [ls for ls in cm.segments if ls.meta.get("kernel") == "conv_requant"]
+    assert fused and len(fused) == cm.routes()["tiled_conv"]
+    dev_params = params_to_torch(params, cuda)
+    before = conv_requant.launches
+    out = cm.run(dev_params, x)
+    torch.cuda.synchronize()
+    assert conv_requant.launches - before == len(fused)
+    for k in ref:
+        assert torch.equal(out[k].cpu(), ref[k])
+    # one device kernel per fused segment call, and nothing else (the
+    # first segment reads the graph's input)
+    ls = fused[0]
+    assert ls.input_names == ("x",)
+    sp = ls.params_slice(dev_params)
+    xin = torch.from_numpy(x["x"]).to(cuda)
+    ls.fn(sp, xin)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ls.fn(sp, xin)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "conv_requant" in names[0], names
+    am = compile_aot(cm)
+    am.warmup(params, x)
+    before = conv_requant.launches
+    outs = [am.run(params, x) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert conv_requant.launches - before == 3 * len(fused)
+    for o in outs:
+        for k in ref:
+            assert torch.equal(o[k].cpu(), ref[k])
 
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}

@@ -2,7 +2,8 @@
 the compile (``repro_torch.obs.trace``), on the CPU: the four phase spans
 of ``AotModel.run`` inside ``aot.run:<graph>``, nothing recorded with the
 tracer off, the ``node:<op>`` spans inside each segment span of
-``CompiledModel.run``, the ``dse.candidates`` counter and the
+``CompiledModel.run`` (one, the anchor's, for a fused conv segment), the
+``dse.candidates`` counter and the
 ``dispatch.dse_flush`` span's ``candidates``, and the tracer's epoch on
 ``perf_counter``, which ties its spans to a device trace.
 """
@@ -30,6 +31,18 @@ def net():
     params = init_graph_params(g, seed=0)
     x = np.random.default_rng(0).integers(-128, 128, size=(1, 8, 8, 4)).astype("float32")
     return cm, params, {"x": x}
+
+
+@pytest.fixture(scope="module")
+def banded():
+    """The same block with a requant that carries a folded ``scale`` attr,
+    which the fused conv kernel does not model: its conv segment keeps the
+    banded executor and its chain."""
+    g = conv_block_graph(IX=8, IY=8, C=4, K=8)
+    nodes = [pc.Node(n.name, n.op, n.inputs, {**n.attrs, "scale": 1.0}) if n.op == "requant" else n for n in g.nodes]
+    g = pc.Graph(g.name, nodes, g.inputs, g.outputs)
+    cm = pb.lower(pc.dispatch(g, "gap9", budget=300), device="cpu")
+    return cm, init_graph_params(g, seed=0)
 
 
 @pytest.fixture
@@ -105,20 +118,25 @@ def test_requests_no_longer_bump_a_cache_hit_counter(net):
     assert next(iter(am._entries.values())).calls == 3
 
 
-def test_segments_write_node_spans_inside_their_span(net, tracer):
-    cm, params, inputs = net
-    cm.run(params, inputs)
-    spans = _spans(tracer)
-    segs = [s for s in spans if s["args"].get("route") is not None]
-    assert [s["name"] for s in segs] == [ls.name for ls in cm.segments]
-    for ls, seg in zip(cm.segments, segs):
-        nodes = sorted((s for s in spans if s["name"].startswith("node:") and _inside(s, seg)
-                        and s["lane"] == seg["lane"]), key=lambda s: s["ts"])
-        assert [(s["name"], s["args"]["name"]) for s in nodes] == [
-            (f"node:{nd.op}", nd.name) for nd in ls.segment.nodes
-        ], ls.name
-    conv = next(ls for ls in cm.segments if ls.route == "tiled_conv")
-    assert [nd.op for nd in conv.segment.nodes][:3] == ["conv2d", "bias_add", "requant"]
+def test_segments_write_node_spans_inside_their_span(net, banded, tracer):
+    _, _, inputs = net
+    for (cm, params), kernel in (((net[0], net[1]), "conv_requant"), (banded, "banded")):
+        tracer.clear()
+        cm.run(params, inputs)
+        spans = _spans(tracer)
+        segs = [s for s in spans if s["args"].get("route") is not None]
+        assert [s["name"] for s in segs] == [ls.name for ls in cm.segments]
+        for ls, seg in zip(cm.segments, segs):
+            nodes = sorted((s for s in spans if s["name"].startswith("node:") and _inside(s, seg)
+                            and s["lane"] == seg["lane"]), key=lambda s: s["ts"])
+            # a fused conv segment is one launch: one span, the anchor's; any
+            # other segment writes one span per node
+            fused = ls.meta.get("kernel") == "conv_requant"
+            want = [(f"node:{nd.op}", nd.name) for nd in (ls.segment.nodes[:1] if fused else ls.segment.nodes)]
+            assert [(s["name"], s["args"]["name"]) for s in nodes] == want, ls.name
+        conv = next(ls for ls in cm.segments if ls.route == "tiled_conv")
+        assert [nd.op for nd in conv.segment.nodes][:3] == ["conv2d", "bias_add", "requant"]
+        assert conv.meta["kernel"] == kernel
 
 
 def test_dispatch_counts_the_dse_candidates(tracer):
