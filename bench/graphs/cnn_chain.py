@@ -8,20 +8,25 @@ alone.  Nodes are named as ``repro_torch.cnn.nets`` names them (op and a
 running count, or the layer's own ``name``), every node carries the
 layer's geometry, batch 1 and 1-byte elements.
 
-A configuration names its graph builder by ``graph``; a builder is a file
-of ``bench/graphs/`` with ``build_graph(config)``, ``program_params(config,
-drawn)`` and, optionally, ``prepare_device(config, dev)``.
+The program is that graph dispatched to the configuration's target and
+lowered (:func:`compile_graph`), the ``CompiledModel`` the loop captures.
+A configuration names its graph builder by ``graph``; :mod:`bench.spec`
+lists what a builder holds.
 """
 
 from __future__ import annotations
 
-import torch
-from repro_torch.core import Graph, Node
+import time
 
-from bench.data import Draw
+import torch
+from repro_torch.backend import lower
+from repro_torch.core import Graph, Node, dispatch
+from repro_torch.targets import register_h100_target
+
+from bench.data import Draw, draw
 from bench.reference.cnn_int import MAC_OPS
 
-__all__ = ["build_graph", "prepare_device", "program_params"]
+__all__ = ["build_graph", "build_program", "compile_graph", "draw", "prepare_device", "program_params"]
 
 _NOT_GEOMETRY = ("op", "relu", "name")
 
@@ -61,6 +66,23 @@ def build_graph(config: dict) -> Graph:
     return g
 
 
+def compile_graph(graph: Graph, config: dict, device: torch.device):
+    """``graph`` dispatched to the configuration's target with its
+    ``dispatch`` settings and lowered on ``device``, and the host seconds
+    of the two stages."""
+    t0 = time.perf_counter()
+    mapped = dispatch(graph, config["target"], **config["dispatch"])
+    t1 = time.perf_counter()
+    cm = lower(mapped, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return cm, {"dispatch": t1 - t0, "lower": time.perf_counter() - t1}
+
+
+def build_program(config: dict, params: dict, device: torch.device):
+    return compile_graph(build_graph(config), config, device)
+
+
 def program_params(config: dict, drawn: Draw) -> dict:
     """The program's parameter dict: float32 copies of the drawn weights
     and biases on their device, and each requant's shift."""
@@ -76,9 +98,12 @@ def program_params(config: dict, drawn: Draw) -> dict:
 
 
 def prepare_device(config: dict, dev: torch.device) -> None:
-    """Load the kernel libraries the net's segments use before the compile
-    clock starts: a cold build of the GEMM, and cuDNN's and cuBLAS's first
-    use, are set-up that no compile of the net should be charged with."""
+    """Register the h100 target and load the kernel libraries the net's
+    segments use before the compile clock starts: a cold build of the
+    GEMM, and cuDNN's and cuBLAS's first use, are set-up that no compile of
+    the net should be charged with."""
+    if config["target"] == "h100":
+        register_h100_target()
     if dev.type != "cuda":
         return
     if any(layer["op"] == "dense" for layer in config["layers"]):

@@ -2,14 +2,19 @@
 then the check against the plain reference.
 
 The cell's data names every part that is not common to all cells: the
-configuration its graph builder, reference and need counts, the mix the
-loop that drives the window (:mod:`bench.spec`).  Inputs are a seeded pool
-of distinct int8-valued samples, taken in a seeded order.  Before the
-window they are put in host memory in the dtype the compiled entry takes
-(float32: the port's conv route takes no int8), as LoadGen's sample
-library loads samples before a run.  A seeded reservoir of answers is
-kept and, once the window has closed and the program's state is freed,
-held bit for bit against the configuration's plain reference.
+configuration its graph builder, reference, need counts and check rule,
+the mix the loop that drives the window (:mod:`bench.spec`, which lists
+what each of those files holds).  Inputs are a seeded pool of samples,
+the builder's ``draw``, taken in a seeded order.  Before the window they
+are put in host memory in the dtype the entry takes (the configuration's
+``input.dtype``: float32 for the int8 nets, since the port's conv route
+takes no int8), as LoadGen's sample library loads samples before a run.
+The builder's ``build_program`` (for the int8 nets: the graph dispatched
+and lowered) goes to the loop's ``prepare``.  A seeded reservoir of
+answers is kept and, once the window has closed and the program's state
+is freed, held against the configuration's plain reference by its check
+rule: bit for bit where the configuration states none
+(``bench/checks/exact.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from types import ModuleType
 import numpy as np
 import torch
 
-from bench import data, spec
+from bench import spec
 from bench.trace import Stretch, TraceReading
 
 __all__ = ["Feed", "Run", "check", "run_cell"]
@@ -46,7 +51,7 @@ class Run:
     seconds: float
     setup_s: float = 0.0
     compile_s: float = 0.0
-    dispatch_s: float = 0.0
+    compile_parts: dict = field(default_factory=dict)  # host seconds of each stage of build_program
     window_s: float = 0.0
     latencies_s: list = field(default_factory=list)  # every request of the window
     attempted: int = 0
@@ -65,12 +70,10 @@ class Run:
 
     def need_s(self, rows: int) -> float:
         """The least device seconds of one batch of ``rows`` samples."""
-        peak = self.peaks[self.config["precision"]["peak"]]
-        return self.counts.need_s(self.config["layers"], self.config["input"]["shape"], rows, peak,
-                                  self.peaks["hbm_bytes_s"])
+        return self.counts.need_s_of(self.config, rows, self.peaks)
 
     def macs(self) -> int:
-        return self.counts.macs(self.config["layers"], self.config["input"]["shape"])
+        return self.counts.macs_of(self.config)
 
     # the readers of the traced stretch: None where it has nothing to read
     def roofline_pct(self) -> float | None:
@@ -141,29 +144,21 @@ def _sync(dev: torch.device) -> None:
 # -- the check ------------------------------------------------------------------
 
 
-def check(config: dict, drawn, kept: list, *, operand_bits: int = 8, block: int = 64,
-          bench_dir: Path = spec.BENCH) -> dict:
+def check(config: dict, drawn, kept: list, *, device: torch.device = torch.device("cpu"),
+          bench_dir: Path = spec.BENCH) -> dict[str, tuple[float, float]]:
     """Hold each kept answer ``(pool index, {output: tensor})`` against the
-    plain reference's answer for that input, bit for bit.  Returns the
-    numbers compared: values that differ, answers checked."""
-    ref_mod = spec.named(bench_dir, "reference", config["reference"])
-    rparams = drawn.reference_params()
-    wanted = sorted({p for p, _ in kept})
-    ref: dict[int, np.ndarray] = {}
-    for i in range(0, len(wanted), block):
-        idx = wanted[i : i + block]
-        x = np.concatenate([drawn.pool[p].numpy() for p in idx])
-        y = ref_mod.forward(config["layers"], rparams, x, operand_bits=operand_bits)
-        for j, p in enumerate(idx):
-            ref[p] = y[j : j + 1]
-    bad = 0
-    for p, out in kept:
-        (got,) = out.values()
-        got = got.detach().to("cpu", torch.float64).numpy()
-        want = ref[p].reshape(-1).astype(np.float64)
-        got = got.reshape(-1)
-        bad += int(np.count_nonzero(got != want)) if got.shape == want.shape else want.size
-    return {"mismatched_values": bad, "checked_answers": len(kept)}
+    plain reference's answer for that input by the configuration's check
+    rule (:func:`bench.spec.check_rule`), TF32 off in the reference and
+    restored after it.  Returns each number the rule compares with the
+    most it may read, in the order printed."""
+    rule, rule_mod = spec.check_rule(config, bench_dir)
+    reference = spec.named(bench_dir, "reference", config["reference"])
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        return rule_mod.judge(config, rule, drawn, kept, reference, device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
 # -- one run --------------------------------------------------------------------
@@ -185,22 +180,16 @@ def run_cell(checkout: Path, workload: str, seed: int, seconds: float, trace: bo
     on ``perf_counter``, so that set-up counts the imports."""
     t_process = time.perf_counter() if t_process is None else t_process
     from repro_torch._device import resolve_device
-    from repro_torch.backend import lower
-    from repro_torch.core import dispatch
-    from repro_torch.targets import register_h100_target
 
     cell = spec.load_cell(checkout, workload, bench_dir)
     cfg, mix = cell.config, cell.mix
     loop = spec.named(bench_dir, "loops", mix["loop"])
     builder = spec.named(bench_dir, "graphs", cfg["graph"])
     dev = resolve_device(device)
-    if cfg["target"] == "h100":
-        register_h100_target()
     peaks = json.loads((bench_dir / "peaks.json").read_text())[cfg["target"]]
     run = Run(config=cfg, counts=spec.named(bench_dir, "reference", cfg["counts"]), peaks=peaks,
               seconds=float(seconds))
-    drawn = data.draw(cfg, seed, mix["pool"], dev)
-    graph = builder.build_graph(cfg)
+    drawn = builder.draw(cfg, seed, mix["pool"], dev)
     order = np.random.default_rng(seed).integers(0, mix["pool"], size=SEQ_LEN).tolist()
     n_warm = mix.get("warmup", 0)
     # the samples sit in host memory in the dtype the compiled entry takes
@@ -209,23 +198,21 @@ def run_cell(checkout: Path, workload: str, seed: int, seconds: float, trace: bo
                 samples=[x.to(getattr(torch, cfg["input"]["dtype"])) for x in drawn.pool],
                 warm_order=order[:n_warm], order=order[n_warm:] + order[:n_warm], name=cfg["input"]["name"],
                 keep=Reservoir(mix["check_answers"], seed), dev=dev, trace=trace)
-    if hasattr(builder, "prepare_device"):
-        builder.prepare_device(cfg, dev)
+    builder.prepare_device(cfg, dev)
     _sync(dev)
 
-    # compile: dispatch, lower, and the capture of the cell's own signature
+    # compile: the builder's program (the int8 nets: dispatch and lower), and the loop's prepare
+    # (the capture of the cell's own signature)
     t0 = time.perf_counter()
-    mapped = dispatch(graph, cfg["target"], **cfg["dispatch"])
-    t1 = time.perf_counter()
-    cm = lower(mapped, device=dev)
+    program, run.compile_parts = builder.build_program(cfg, feed.params, dev)
     _sync(dev)
     t2 = time.perf_counter()
-    entry = loop.prepare(cm, feed, mix)
+    entry = loop.prepare(program, feed, mix)
     _sync(dev)
     run.compile_s = time.perf_counter() - t0
-    run.dispatch_s = t1 - t0
-    print(f"bench: compile_s {run.compile_s:.4f}: dispatch {t1 - t0:.4f}, lower {t2 - t1:.4f}, "
-          f"capture {run.compile_s - (t2 - t0):.4f}", file=sys.stderr)
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in run.compile_parts.items())
+    print(f"bench: compile_s {run.compile_s:.4f}: build_program {t2 - t0:.4f} ({parts}), "
+          f"prepare {run.compile_s - (t2 - t0):.4f}", file=sys.stderr)
 
     if trace:
         Stretch(dev).prime()
@@ -261,7 +248,7 @@ def run_cell(checkout: Path, workload: str, seed: int, seconds: float, trace: bo
     if leaked:
         raise ImportError(f"the run loaded {', '.join(leaked)}: the benchmark runs without JAX and the JAX package")
     kept = [(p, {k: v.cpu() for k, v in out.items()}) for p, out in feed.keep.items]
-    del feed, entry, cm, mapped
+    del feed, entry, program
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -271,12 +258,10 @@ def run_cell(checkout: Path, workload: str, seed: int, seconds: float, trace: bo
         value = spec.reader(cell, m["name"])(run)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    found = check(cfg, drawn, kept, bench_dir=bench_dir)
-    checks = {
-        "mismatched_values": {"value": found["mismatched_values"], "limit": 0, "holds": "<="},
-        "failed_requests": {"value": run.failed, "limit": 0, "holds": "<="},
-        "checked_answers": {"value": found["checked_answers"], "limit": 1, "holds": ">="},
-    }
+    checks = {k: {"value": value, "limit": limit, "holds": "<="}
+              for k, (value, limit) in check(cfg, drawn, kept, device=dev, bench_dir=bench_dir).items()}
+    checks["failed_requests"] = {"value": run.failed, "limit": 0, "holds": "<="}
+    checks["checked_answers"] = {"value": len(kept), "limit": 1, "holds": ">="}
     correct = all(c["value"] <= c["limit"] if c["holds"] == "<=" else c["value"] >= c["limit"]
                   for c in checks.values())
     result = {"correct": correct, "attempted": run.attempted, "failed": run.failed, "metrics": metrics,

@@ -2,4 +2,4 @@
 
 
 def read(run):
-    return run.dispatch_s
+    return run.compile_parts.get("dispatch")

@@ -143,7 +143,6 @@ class StretchB:
     idle_gaps: list = field(default_factory=list)  # [[innermost span, seconds]], most first
     by_segment: list = field(default_factory=list)  # [[segment, route, s, anchor s, epilogue s]], most first
     tiled_conv_roofline_pct: float | None = None
-    conv_epilogue_pct: float | None = None
 
 
 @dataclass
@@ -383,9 +382,6 @@ def read_stretch_b(dt: DeviceTrace, spans: list[Span], eager: tuple[float, float
                     row[3 if lab.node == 0 else 4] += d.b - d.a
         out.by_segment = sorted(seg_s.values(), key=lambda r: -r[2])[:TOP]
         conv = [(d, lab) for replay in out.matched for d, lab in replay if lab.route == "tiled_conv"]
-        conv_s = sum(d.b - d.a for d, _ in conv)
-        if conv_s > 0:
-            out.conv_epilogue_pct = 100.0 * sum(d.b - d.a for d, lab in conv if lab.node) / conv_s
         kernel_s, _ = union_s([(d.a, d.b) for d, _ in conv if d.cat == "kernel"])
         conv_segments = {lab.segment for _, lab in out.sequence if lab.route == "tiled_conv"}
         need = sum(need_by_segment.get(s, 0.0) for s in conv_segments)
@@ -472,12 +468,10 @@ def _pass(run, tr) -> Reading:
     from repro_torch.backend import compile_aot, lower
     from repro_torch.core import clear_schedule_cache, dispatch
 
-    from bench import data
-
     cfg = run.config
     dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     builder = spec.named(spec.BENCH, "graphs", cfg["graph"])
-    drawn = data.draw(cfg, _seed(), POOL, dev)
+    drawn = builder.draw(cfg, _seed(), POOL, dev)
     params = builder.program_params(cfg, drawn)
     name = cfg["input"]["name"]
     samples = [x.to(getattr(torch, cfg["input"]["dtype"])) for x in drawn.pool]

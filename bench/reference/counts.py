@@ -7,11 +7,15 @@ int32 bias read once per batch, and each output written once, all at
 their declared widths (int8 activations and weights, int32 bias).  A
 layer's least time is max(bytes / HBM bytes/s, ops / peak ops/s); the
 net's is the sum over its layers.
+
+The harness asks a counts module for :func:`macs_of` and :func:`need_s_of`,
+which take the whole configuration; the functions of a layer list beside
+them are what those, and other counts modules, are built from.
 """
 
 from __future__ import annotations
 
-__all__ = ["layer_counts", "macs", "need_s", "shapes"]
+__all__ = ["layer_counts", "macs", "macs_of", "need_s", "need_s_of", "shapes"]
 
 ACT_BYTES, WEIGHT_BYTES, BIAS_BYTES = 1, 1, 4
 
@@ -79,3 +83,15 @@ def need_s(layers: list[dict], input_shape: list[int], rows: int, ops_s: float, 
         c = layer_counts(layer, i, o, rows)
         total += max(c["bytes"] / bytes_s, c["ops"] / ops_s)
     return total
+
+
+def macs_of(config: dict) -> int:
+    """MACs of one sample through the configuration's net."""
+    return macs(config["layers"], config["input"]["shape"])
+
+
+def need_s_of(config: dict, rows: int, peaks: dict) -> float:
+    """The least device seconds of one batch of ``rows`` samples, at the
+    peak the configuration's precision names and the HBM's bytes/s."""
+    return need_s(config["layers"], config["input"]["shape"], rows, peaks[config["precision"]["peak"]],
+                  peaks["hbm_bytes_s"])

@@ -4,10 +4,33 @@ A cell names a configuration (its file is given in ``BENCHMARK.json``)
 and a traffic mix (``bench/mixes/<traffic>.json``).  A mix names the loop
 that drives it (``bench/loops/<loop>.py``); a configuration names its
 graph builder (``bench/graphs/<graph>.py``), its plain reference and its
-need counts (``bench/reference/<reference>.py``, ``<counts>.py``); every
+need counts (``bench/reference/<reference>.py``, ``<counts>.py``) and, in
+an optional ``"check"`` block, the rule its answers are held to
+(``bench/checks/<rule>.py``; ``exact`` where there is no block); every
 metric has a reader of its own (``bench/metrics/<name>.py``, a function
 ``read(run)`` returning a number or ``None``).  Adding a cell, a mix, a
-loop, a configuration or a metric adds files and entries and edits none.
+loop, a configuration, a rule or a metric adds files and entries and
+edits none.
+
+What each file holds (:mod:`bench.graphs.cnn_chain`,
+:mod:`bench.loops.closed`, :mod:`bench.reference.counts` and
+``bench/checks/exact.py`` are the int8 MATCH nets'):
+
+* a graph builder: ``draw(config, seed, pool, device)``, the run's draw
+  from the seed, an object with ``pool`` (host tensors of any dtype, one
+  sample each) and ``reference_params()``; ``program_params(config,
+  drawn)``, the program's parameters; ``prepare_device(config, dev)``,
+  set-up before the compile clock starts; and ``build_program(config,
+  params, device)``, the program and the host seconds of each of its
+  stages by name (a ``dispatch`` stage is what ``dispatch_s`` reads);
+* a loop: ``prepare(program, feed, mix)``, ``warm(entry, feed, mix)``,
+  ``drive(run, entry, feed, mix)`` and, optionally, ``close(entry)``;
+* need counts: ``macs_of(config)``, the MACs of one sample, and
+  ``need_s_of(config, rows, peaks)``, the least device seconds of a batch
+  of ``rows`` samples;
+* a check rule: ``judge(config, rule, drawn, kept, reference, device)``,
+  each number it compares, in the order printed, with the most it may
+  read.
 """
 
 from __future__ import annotations
@@ -19,7 +42,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
 
-__all__ = ["Cell", "load_cell", "load_module", "metrics_of", "named", "reader"]
+__all__ = ["Cell", "check_rule", "load_cell", "load_module", "metrics_of", "named", "reader"]
 
 BENCH = Path(__file__).resolve().parent
 
@@ -74,3 +97,10 @@ def metrics_of(cell: Cell, trace: bool) -> list[dict]:
 
 def reader(cell: Cell, metric: str):
     return named(cell.bench_dir, "metrics", metric).read
+
+
+def check_rule(config: dict, bench_dir: Path = BENCH) -> tuple[dict, ModuleType]:
+    """The configuration's ``"check"`` block (``{"rule": "exact"}`` where it
+    has none) and the file of its rule."""
+    rule = config.get("check", {"rule": "exact"})
+    return rule, named(bench_dir, "checks", rule["rule"])

@@ -33,11 +33,18 @@ DUMMY_CONFIG = {
 }
 DUMMY_MIX = {"loop": "paced", "interval_s": 0.01, "pool": 8, "warmup": 4, "check_answers": 16}
 FILES = {
-    "graphs/residual.py": '''"""A test's graph builder: layers join the outputs their ``inputs`` name."""
+    "graphs/residual.py": '''"""A test's graph builder: layers join the outputs their ``inputs`` name;
+the draw, the device's set-up and the compile are the chain's."""
+
+from pathlib import Path
 
 from repro_torch.core import Graph, Node
 
+from bench import spec
 from bench.reference.cnn_int import MAC_OPS
+
+_chain = spec.load_module(Path(__file__).with_name("cnn_chain.py"))
+draw, prepare_device = _chain.draw, _chain.prepare_device
 
 SKIP = ("op", "relu", "name", "inputs", "shift")
 
@@ -66,6 +73,10 @@ def build_graph(config):
     nodes = [n for c in _chains(config) for n in c]
     inp = config["input"]
     return Graph(config["name"], nodes, {inp["name"]: tuple(inp["shape"])}, (nodes[-1].name,))
+
+
+def build_program(config, params, device):
+    return _chain.compile_graph(build_graph(config), config, device)
 
 
 def program_params(config, drawn):
@@ -105,13 +116,14 @@ def _chain(layers):
     return [layer for layer in layers if layer["op"] != "add"]
 
 
-def macs(layers, input_shape):
-    return counts.macs(_chain(layers), input_shape)
+def macs_of(config):
+    return counts.macs(_chain(config["layers"]), config["input"]["shape"])
 
 
-def need_s(layers, input_shape, rows, ops_s, bytes_s):
-    t = counts.need_s(_chain(layers), input_shape, rows, ops_s, bytes_s)
-    for layer in layers:
+def need_s_of(config, rows, peaks):
+    ops_s, bytes_s = peaks[config["precision"]["peak"]], peaks["hbm_bytes_s"]
+    t = counts.need_s(_chain(config["layers"]), config["input"]["shape"], rows, ops_s, bytes_s)
+    for layer in config["layers"]:
         if layer["op"] == "add":
             n = layer["K"] * layer["OY"] * layer["OX"] * rows
             t += max(3 * n / bytes_s, n / ops_s)
@@ -216,7 +228,8 @@ def test_the_new_references_answers_differ_from_a_chains(checkout):
     params = [p for layer, p in zip(DUMMY_CONFIG["layers"], drawn.reference_params()) if layer["op"] != "add"]
     wrong = spec.named(checkout / "bench", "reference", "cnn_int").forward(chain, params, x)
     kept = [(i, {"y": harness.torch.from_numpy(wrong[i : i + 1].astype("float32"))}) for i in range(4)]
-    assert harness.check(DUMMY_CONFIG, drawn, kept, bench_dir=checkout / "bench")["mismatched_values"] > 0
+    value, limit = harness.check(DUMMY_CONFIG, drawn, kept, bench_dir=checkout / "bench")["mismatched_values"]
+    assert value > limit == 0
 
 
 def test_a_metric_without_workloads_follows_what_it_moves(checkout):
