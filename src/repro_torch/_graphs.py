@@ -15,9 +15,9 @@ and copy new data into them between replays.
   lets cuBLAS and cuDNN pick their algorithms outside the capture;
 * records, during the capture, how far each kernel wrapper's
   ``launches`` counter moved (the six port kernels of
-  :data:`COUNTED`), then puts every counter back where it stood before
-  the warm-up (:func:`uncounted`): a capture launches nothing that a
-  user asked for;
+  :data:`COUNTED`), and each :mod:`repro_torch.obs` counter that moved,
+  then puts every counter back where it stood before the warm-up
+  (:func:`uncounted`): a capture launches nothing that a user asked for;
 * returns a :class:`CapturedGraph` whose :meth:`~CapturedGraph.replay`
   adds those increases back, so the counters stay exact under replay.
 
@@ -36,6 +36,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.conv_requant import conv_requant
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul_requant import matmul_requant
@@ -64,16 +65,24 @@ def add_launches(delta: dict[str, int]) -> None:
         fn.launches += delta.get(fn.__name__, 0)
 
 
+def _obs_counts() -> dict[str, int]:
+    return obs.metrics_dict()["counters"]
+
+
 @contextlib.contextmanager
 def uncounted():
-    """Launches inside the block leave every counter as it was: a
-    warm-up or a capture is paid to build a graph, not asked for."""
-    before = launch_counts()
+    """Launches inside the block leave every counter as it was, the
+    :mod:`repro_torch.obs` counters too: a warm-up or a capture is paid to
+    build a graph, not asked for."""
+    before, before_obs = launch_counts(), _obs_counts()
     try:
         yield
     finally:
         for fn in COUNTED:
             fn.launches = before[fn.__name__]
+        for name, value in _obs_counts().items():
+            if value != before_obs.get(name, 0):
+                obs.counter(name).value = before_obs.get(name, 0)
 
 
 @dataclass
@@ -86,6 +95,7 @@ class CapturedGraph:
     output: Any
     launches: dict[str, int]
     capture_ms: float
+    counts: tuple = ()  # (obs Counter, its increase in the capture) of each counter that moved
 
     def replay(self) -> Any:
         """Launch the captured sequence on the current stream; returns
@@ -93,6 +103,8 @@ class CapturedGraph:
         reaches them."""
         self.graph.replay()
         add_launches(self.launches)
+        for c, n in self.counts:
+            c.inc(n)
         return self.output
 
 
@@ -120,13 +132,14 @@ def capture(fn: Callable[[], Any], device: torch.device, *, warmup: int = 1) -> 
                     fn()
             torch.cuda.current_stream(device).wait_stream(side)
             torch.cuda.synchronize(device)
-            start = launch_counts()
+            start, start_obs = launch_counts(), _obs_counts()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 output = fn()
-            end = launch_counts()
+            end, end_obs = launch_counts(), _obs_counts()
             torch.cuda.synchronize(device)
     except Exception as e:
         raise GraphCaptureError(f"capture of {getattr(fn, '__qualname__', fn)} on {device} failed: {e}") from e
     launches = {k: end[k] - start[k] for k in end}
-    return CapturedGraph(graph, output, launches, (time.perf_counter() - t0) * 1e3)
+    counts = tuple((obs.counter(k), v - start_obs.get(k, 0)) for k, v in end_obs.items() if v != start_obs.get(k, 0))
+    return CapturedGraph(graph, output, launches, (time.perf_counter() - t0) * 1e3, counts)

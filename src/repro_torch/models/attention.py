@@ -13,7 +13,10 @@ the reference computes it in plain jnp.
 
 GQA: ``n_kv_heads`` K/V heads shared by groups of query heads (kv=1 is
 MQA, e.g. granite-34b).  M-RoPE (qwen2-vl): head-dim sections rotate with
-separate (t, h, w) position streams (:func:`mrope_tables`).
+separate (t, h, w) position streams (:func:`mrope_tables`).  The softmax
+scale is 1/sqrt(head_dim), or the configuration's ``attn_scale`` where it
+sets one (granite-4.0-h's 1/128; a reference ``ModelConfig``, which these
+functions also take, has none).
 """
 
 from __future__ import annotations
@@ -146,6 +149,10 @@ def attention_kv(
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
     causal = cfg.causal if causal is None else causal
+    scale = getattr(cfg, "attn_scale", 0.0)
+    if scale:
+        # the kernel scales by 1/sqrt(hd): a configured scale goes onto q first
+        q = q * (scale * math.sqrt(cfg.head_dim_))
     out = flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window
     )
@@ -173,7 +180,7 @@ def _attend_cache(q, k, v, valid, cfg: ModelConfig, dtype) -> torch.Tensor:
     B = q.shape[0]
     hd, nh, nkv = cfg.head_dim_, cfg.n_heads, cfg.kv_heads
     g = nh // nkv
-    qf = (upcast(q) * (1.0 / math.sqrt(hd))).reshape(B, 1, nkv, g, hd)
+    qf = (upcast(q) * (getattr(cfg, "attn_scale", 0.0) or 1.0 / math.sqrt(hd))).reshape(B, 1, nkv, g, hd)
     s = torch.einsum("bqkgd,bskd->bqkgs", qf, upcast(k))
     s = torch.where(valid[None, None, None, None, :], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)

@@ -4,7 +4,9 @@ One dataclass describes every LM family in the pool: dense decoders
 (starcoder2, granite-34b, qwen2.5, gemma), MoE decoders (dbrx,
 granite-moe), a VLM backbone (qwen2-vl, M-RoPE), an encoder-only audio
 model (hubert), a hybrid recurrent model (recurrentgemma, RG-LRU + local
-attention 1:2) and an attention-free SSM (mamba2, SSD).
+attention 1:2) and an attention-free SSM (mamba2, SSD).  The port adds
+granite-4.0-h (Mamba-2 and NoPE attention blocks, each followed by a
+dropless MoE with a shared expert, and the four granite multipliers).
 
 ``layer_pattern()`` expands the per-layer block types; contiguous runs of
 the same type are scanned (``jax.lax.scan``) so HLO size and compile time
@@ -16,9 +18,9 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Literal, Sequence
+from typing import ClassVar, Literal, Sequence
 
-__all__ = ["ModelConfig"]
+__all__ = ["GraniteConfig", "ModelConfig"]
 
 BlockType = Literal["attn", "local_attn", "rglru", "ssd"]
 
@@ -79,6 +81,17 @@ class ModelConfig:
     # modality frontend stub (vlm/audio): inputs are precomputed embeddings
     frontend_stub: bool = False
 
+    # granite-4.0-h's settings: fields of GraniteConfig alone, so that this
+    # class keeps the reference's fields; every other family reads these
+    moe_shared_d_ff: ClassVar[int] = 0
+    moe_dropless: ClassVar[bool] = False
+    ssm_conv_bias: ClassVar[bool] = False
+    ssd_mlp: ClassVar[bool] = False
+    embed_multiplier: ClassVar[float] = 0.0
+    residual_multiplier: ClassVar[float] = 1.0
+    logits_scaling: ClassVar[float] = 1.0
+    attn_scale: ClassVar[float] = 0.0
+
     # ------------------------------------------------------------------
     @property
     def kv_heads(self) -> int:
@@ -104,6 +117,10 @@ class ModelConfig:
     @property
     def decoder(self) -> bool:
         return self.causal
+
+    def has_ffn(self, btype: str) -> bool:
+        """Whether a block of type ``btype`` ends in the MLP / MoE half."""
+        return btype != "ssd" or self.ssd_mlp
 
     def layer_pattern(self) -> tuple[str, ...]:
         """Expand block_types to n_layers entries."""
@@ -149,24 +166,41 @@ class ModelConfig:
                 nh_s = d_in // self.ssm_head_dim
                 total += d * (2 * d_in + 2 * self.ssm_state + nh_s) + d_in * d
                 total += self.ssm_conv * (d_in + 2 * self.ssm_state)
-            if t in ("attn", "local_attn", "rglru"):
-                if self.is_moe:
-                    total += self.n_experts * 3 * d * self.moe_d_ff + d * self.n_experts
-                else:
-                    n_mats = 3 if self.activation in ("swiglu", "geglu") else 2
-                    total += n_mats * d * self.d_ff
-            elif t == "ssd":
-                pass  # mamba blocks have no separate MLP
+                if self.ssm_conv_bias:
+                    total += d_in + 2 * self.ssm_state
+            if not self.has_ffn(t):
+                continue  # mamba2 blocks have no separate MLP
+            if self.is_moe:
+                total += self.n_experts * 3 * d * self.moe_d_ff + d * self.n_experts
+                total += 3 * d * self.moe_shared_d_ff
+            else:
+                n_mats = 3 if self.activation in ("swiglu", "geglu") else 2
+                total += n_mats * d * self.d_ff
         return total
 
     def n_active_params(self) -> int:
-        """Active parameters per token (MoE: only top_k experts)."""
+        """Active parameters per token (MoE: only top_k experts, and the
+        shared expert)."""
         if not self.is_moe:
             return self.n_params()
-        full = self.n_params()
-        moe_total = self.n_layers * self.n_experts * 3 * self.d_model * self.moe_d_ff
-        moe_active = self.n_layers * self.top_k * 3 * self.d_model * self.moe_d_ff
-        return full - moe_total + moe_active
+        n_moe = sum(self.has_ffn(t) for t in self.layer_pattern())
+        idle = n_moe * (self.n_experts - self.top_k) * 3 * self.d_model * self.moe_d_ff
+        return self.n_params() - idle
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class GraniteConfig(ModelConfig):
+    """granite-4.0-h (``granitemoehybrid``): the blocks of a
+    :class:`ModelConfig` and the settings the reference's families lack."""
+
+    moe_shared_d_ff: int = 0  # >0: one shared SwiGLU expert of this width beside the routed ones, weight 1
+    moe_dropless: bool = False  # the capacity holds every routed pair: no token is dropped
+    ssm_conv_bias: bool = False  # the causal conv adds a per-channel bias
+    ssd_mlp: bool = False  # ssd blocks are followed by the MLP / MoE half, not alone (mamba2)
+    embed_multiplier: float = 0.0  # 0 -> sqrt(d_model), the gemma-style input scale
+    residual_multiplier: float = 1.0  # each block's update is scaled by it before the residual add
+    logits_scaling: float = 1.0  # the logits are divided by it
+    attn_scale: float = 0.0  # the softmax scale of q.k; 0 -> 1/sqrt(head_dim)

@@ -22,6 +22,11 @@ and its default formulation (``moe_dispatch="token"``,
 * Combine gathers each token's K slots back through one zero pad row, so
   dropped tokens contribute zero, and sums them weighted by their gates.
 * The Switch/GShard load-balancing aux loss.
+* granite-4.0-h's two additions: a shared SwiGLU expert beside the
+  routed ones (``cfg.moe_shared_d_ff``), added with weight 1, and dropless
+  routing (``cfg.moe_dropless``, :func:`_dropless_capacity`).  Granite
+  takes the softmax of the top-k router logits; the softmax over all of
+  them renormalised over the top k is the same function.
 
 The port does not shard: the reference's ``constrain`` calls are dropped.
 """
@@ -33,27 +38,38 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch._device import upcast
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ParamSpec
+from repro_torch.models.layers import ParamSpec, mlp, mlp_params
 
 __all__ = ["moe_params", "moe_ffn", "moe_capacity"]
 
 
 def moe_params(cfg: ModelConfig) -> dict:
     d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
-    return {
+    p = {
         "router": ParamSpec((d, e), ("embed", None), "float32", scale=0.1),
         "wi_gate": ParamSpec((e, d, f), ("experts", "embed", "moe_ffn"), cfg.dtype),
         "wi_up": ParamSpec((e, d, f), ("experts", "embed", "moe_ffn"), cfg.dtype),
         "wo": ParamSpec((e, f, d), ("experts", "moe_ffn", "embed"), cfg.dtype),
     }
+    if cfg.moe_shared_d_ff:
+        p["shared"] = mlp_params(d, cfg.moe_shared_d_ff, "swiglu", cfg.dtype)
+    return p
+
+
+def _pad8(c: int) -> int:
+    return max(8, -(-c // 8) * 8)  # pad to sublane multiple
 
 
 def moe_capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
-    c = math.ceil(tokens_per_group * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
-    return max(8, -(-c // 8) * 8)  # pad to sublane multiple
+    if cfg.moe_dropless:
+        # a token sends an expert at most one pair, so no expert can receive
+        # more pairs than the group has tokens
+        return _pad8(tokens_per_group)
+    return _pad8(math.ceil(tokens_per_group * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -86,6 +102,31 @@ def _route(probs: torch.Tensor, K: int, C: int) -> tuple[torch.Tensor, torch.Ten
     return slots_t, gates_t
 
 
+def _dropless_capacity(c_idx: torch.Tensor, kept: torch.Tensor, C: int, n_experts: int, pairs: int) -> int:
+    """The capacity a dropless layer lays its experts out at, and its
+    ``moe.*`` counters.
+
+    Routing at :func:`moe_capacity`'s bound ``C`` keeps every pair.  An
+    eager call with more than 8 tokens a group (a prefill) then lays the
+    experts out at the power of two, 8 or more, that holds the most pairs
+    any one received (at most ``C``): one host read a layer, which also
+    counts the pairs dropped.  The few sizes this gives let every prompt
+    reuse a layout an earlier one allocated.  A call with at most
+    8 (a decode step), or one a CUDA graph is capturing, keeps ``C`` and
+    reads nothing.  Counted: ``moe.routed_pairs`` (the pairs kept),
+    ``moe.rows_computed`` (the rows the expert products run, padding
+    included) and ``moe.dropped``; under replay :mod:`repro_torch._graphs`
+    adds the counts of the capture."""
+    dropped = 0
+    if C > 8 and not (c_idx.is_cuda and torch.cuda.is_current_stream_capturing()):
+        most, dropped = torch.stack([c_idx.amax().long(), (~kept).sum()]).tolist()
+        C = min(C, max(8, 1 << most.bit_length()))
+    obs.counter("moe.routed_pairs").inc(pairs - dropped)
+    obs.counter("moe.rows_computed").inc(n_experts * kept.shape[0] * C)
+    obs.counter("moe.dropped").inc(dropped)
+    return C
+
+
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y, aux_loss).  Group = batch row (standard)."""
     B, S, D = x.shape
@@ -99,6 +140,8 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
     # ---- dispatch: rows of (x | zero pad row) gathered in (E, B, C) order --
     kept = slots >= 0
     e_idx, c_idx = torch.div(slots, C, rounding_mode="floor"), slots % C
+    if cfg.moe_dropless:
+        C = _dropless_capacity(c_idx, kept, C, E, B * S * K)
     b_idx = torch.arange(B, device=x.device)[:, None, None].expand(B, S, K)
     s_idx = torch.arange(S, device=x.device)[None, :, None].expand(B, S, K)
     dst = (e_idx * B + b_idx) * C + c_idx  # row of (E, B*C); every kept one is unique
@@ -122,6 +165,8 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
     gather = torch.where(kept, dst, spare)  # (B, S, K)
     tok_out = eo_pad[gather]  # (B, S, K, D)
     y = torch.sum(tok_out * gates[..., None].to(tok_out.dtype), dim=2).to(x.dtype)
+    if "shared" in params:
+        y = y + mlp(params["shared"], x, "swiglu")
 
     # ---- load-balancing aux loss (Switch/GShard) --------------------------
     me = probs.mean(dim=(0, 1))  # (E,)

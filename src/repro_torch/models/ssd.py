@@ -1,8 +1,9 @@
 """Mamba-2 SSD block (state-space duality, arXiv:2405.21060) — in PyTorch.
 
 The port of ``repro.models.ssd``.  Block layout follows mamba2: in_proj
--> (z | x | B | C | dt), causal depthwise conv on (x, B, C), SSD core,
-gated RMSNorm, out_proj.
+-> (z | x | B | C | dt), causal depthwise conv on (x, B, C) (with a
+per-channel bias where ``cfg.ssm_conv_bias``, as granite-4.0-h's), SSD
+core, gated RMSNorm, out_proj.
 
 * :func:`ssd_block` computes its SSD core through
   :func:`repro_torch.kernels.ssd_scan` (the hand-written CUDA kernel on the
@@ -19,6 +20,8 @@ The port does not shard: the reference's ``constrain`` calls are dropped.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +45,7 @@ def ssd_params(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     d_in, H, P, N = _dims(cfg)
     cw = cfg.ssm_conv
-    return {
+    p = {
         "in_z": ParamSpec((d, d_in), ("embed", "ffn"), cfg.dtype),
         "in_x": ParamSpec((d, d_in), ("embed", "ffn"), cfg.dtype),
         "in_B": ParamSpec((d, N), ("embed", None), cfg.dtype),
@@ -57,6 +60,11 @@ def ssd_params(cfg: ModelConfig) -> dict:
         "norm": ParamSpec((d_in,), ("ffn",), "float32", init="zeros"),
         "out": ParamSpec((d_in, d), ("ffn", "embed"), cfg.dtype),
     }
+    if cfg.ssm_conv_bias:
+        # std 0.3 at any width (a 1-D spec's fan-in is its length)
+        for name, n in (("conv_x_b", d_in), ("conv_B_b", N), ("conv_C_b", N)):
+            p[name] = ParamSpec((n,), (None,), cfg.dtype, scale=0.3 * math.sqrt(n))
+    return p
 
 
 def ssd_chunked_ref(
@@ -96,6 +104,14 @@ def _in_proj(params: dict, x: torch.Tensor):
     return z, xs, Bm, Cm, dt
 
 
+def _conv(params: dict, name: str, x: torch.Tensor, state: torch.Tensor | None = None):
+    """The causal conv ``params[name]`` over x, plus its bias where the
+    block has one (``ssm_conv_bias``); returns (y, new conv state)."""
+    y, new_state = _causal_conv1d(x, params[name], state)
+    bias = params.get(name + "_b")
+    return (y if bias is None else y + bias), new_state
+
+
 def _out_proj(params: dict, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = y * F.silu(z)  # gated
     y = rmsnorm(y, params["norm"], cfg.norm_eps)
@@ -109,9 +125,9 @@ def ssd_block(params: dict, x: torch.Tensor, cfg: ModelConfig, chunk: int = 128,
     assert T % min(chunk, T) == 0, f"T={T} is not a multiple of the chunk {min(chunk, T)}"
     z, xs, Bm, Cm, dt = _in_proj(params, x)
 
-    xs, cx = _causal_conv1d(xs, params["conv_x"])
-    Bm, cb = _causal_conv1d(Bm, params["conv_B"])
-    Cm, cc = _causal_conv1d(Cm, params["conv_C"])
+    xs, cx = _conv(params, "conv_x", xs)
+    Bm, cb = _conv(params, "conv_B", Bm)
+    Cm, cc = _conv(params, "conv_C", Cm)
     xs = F.silu(xs)
     Bm = F.silu(Bm)
     Cm = F.silu(Cm)
@@ -151,9 +167,9 @@ def ssd_decode_step(
     d_in, H, P, N = _dims(cfg)
     z, xs, Bm, Cm, dt = _in_proj(params, x)
 
-    xs, cx = _causal_conv1d(xs, params["conv_x"], state["conv_x"])
-    Bm, cb = _causal_conv1d(Bm, params["conv_B"], state["conv_B"])
-    Cm, cc = _causal_conv1d(Cm, params["conv_C"], state["conv_C"])
+    xs, cx = _conv(params, "conv_x", xs, state["conv_x"])
+    Bm, cb = _conv(params, "conv_B", Bm, state["conv_B"])
+    Cm, cc = _conv(params, "conv_C", Cm, state["conv_C"])
     xs = upcast(F.silu(xs)[:, 0].reshape(B_, H, P))
     Bm = upcast(F.silu(Bm)[:, 0])  # (B,N)
     Cm = upcast(F.silu(Cm)[:, 0])

@@ -4,9 +4,13 @@ The port of ``repro.models.transformer``.  One class, :class:`LM`, an
 ``nn.Module`` holding its own parameters, for stacks of
 * ``attn`` blocks with a dense MLP (gemma-7b, granite-34b, qwen2.5-3b,
   starcoder2-15b) or a top-k MoE (granite-moe-3b-a800m, dbrx-132b),
-* mamba2 ``ssd`` blocks, which carry no MLP (mamba2-1.3b), and
+* mamba2 ``ssd`` blocks, which carry no MLP (mamba2-1.3b),
 * Griffin ``rglru`` blocks and windowed ``local_attn`` blocks, each with
-  an MLP, in recurrentgemma-2b's (rglru, rglru, local_attn) pattern,
+  an MLP, in recurrentgemma-2b's (rglru, rglru, local_attn) pattern, and
+* granite-4.0-h's period of ten: ``ssd`` and NoPE ``attn`` blocks, each
+  followed by a dropless MoE with a shared expert (``cfg.ssd_mlp``), the
+  embedding, residual and logit multipliers of the configuration, and
+  its attention scale,
 with M-RoPE positions (qwen2-vl) and the modality frontend stub, one
 projection of precomputed embeddings (qwen2-vl, hubert).
 
@@ -31,6 +35,8 @@ What changes against the reference:
   ring or fills it a whole number of times (``S <= L`` or ``S % L ==
   0``); otherwise decode overwrites slots still inside the window
   (ROADMAP C-ref-6).  The port reproduces that, slot for slot.
+* A MoE half in ``forward`` and ``prefill`` records the span
+  ``model.moe`` (:mod:`repro_torch.obs`) where the tracer is on.
 * Prefill attention runs through the flash kernel
   (:func:`repro_torch.models.attention.attention_kv`) and reuses its k/v
   for the cache, where the reference projects them a second time.  The
@@ -79,6 +85,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from repro_torch import obs
 from repro_torch._device import resolve_device, upcast
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import attention_kv, mrope_tables, rope_tables
@@ -169,8 +176,9 @@ def _block_specs(cfg: ModelConfig, btype: str) -> dict:
     out: dict[str, Any] = {"norm1": ParamSpec((d,), ("embed",), "float32", init="zeros")}
     if btype == "ssd":
         out["ssd"] = ssd_params(cfg)
-        return out  # mamba2 blocks carry no separate MLP
-    if btype == "rglru":
+        if not cfg.has_ffn(btype):
+            return out  # mamba2 blocks carry no separate MLP
+    elif btype == "rglru":
         out["rglru"] = rglru_params(cfg)
     else:
         out["attn"] = attn_mod.attention_params(cfg)
@@ -251,9 +259,12 @@ class LM(nn.Module):
         # the block type of each entry of self.layers
         self.block_types = [bt for st in self.stacks for _ in range(st.repeats) for bt in st.pattern]
         self.top = _Params(tree)  # embed, final_norm (and lm_head)
-        # gemma-style input scale: sqrt in float32, rounded to the weights'
-        # dtype; made once, so no step copies it from the host
-        scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32)).to(torch_dtype(cfg.dtype))
+        # the input scale (gemma-style sqrt(d_model) unless the configuration
+        # sets a multiplier) in float32, rounded to the weights' dtype; made
+        # once, so no step copies it from the host
+        scale = (torch.tensor(cfg.embed_multiplier, dtype=torch.float32) if cfg.embed_multiplier
+                 else torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32)))
+        scale = scale.to(torch_dtype(cfg.dtype))
         self.register_buffer("embed_scale", scale.to(dev), persistent=False)
 
     # ------------------------------------------------------------------
@@ -342,7 +353,14 @@ class LM(nn.Module):
     def _head(self, top: dict, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(x, top["final_norm"], self.cfg.norm_eps)
         head = top["embed"] if self.cfg.tie_embeddings else top["lm_head"]
-        return x @ head.t()
+        logits = x @ head.t()
+        return logits if self.cfg.logits_scaling == 1.0 else logits / self.cfg.logits_scaling
+
+    def _add(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """The residual add of a block's update ``y``, scaled by the
+        configuration's residual multiplier."""
+        m = self.cfg.residual_multiplier
+        return x + y if m == 1.0 else x + y * m
 
     def _block(self, bt: str, bp: dict, x: torch.Tensor, rope, lc: dict | None = None):
         """One block; with ``lc`` it also fills that layer's cache.
@@ -351,32 +369,37 @@ class LM(nn.Module):
         h = rmsnorm(x, bp["norm1"], cfg.norm_eps)
         if bt == "ssd":
             y, state = ssd_block(bp["ssd"], h, cfg, return_state=True)
-            if lc is not None:
-                _copy_state(lc, state)
-            return x + y, None
-        if bt == "rglru":
+        elif bt == "rglru":
             y, state = rglru_block(bp["rglru"], h, cfg, return_state=True)
-            if lc is not None:
-                _copy_state(lc, state)
-            return self._ffn(bp, x + y)
-        sin, cos = rope
-        y, k, v = attention_kv(bp["attn"], h, cfg, sin=sin, cos=cos, window=self._window(bt))
+        else:
+            sin, cos = rope
+            y, k, v = attention_kv(bp["attn"], h, cfg, sin=sin, cos=cos, window=self._window(bt))
+            state = None
         if lc is not None:
-            _fill_layer_cache(lc, k, v)
-        return self._ffn(bp, x + y)
+            if state is None:
+                _fill_layer_cache(lc, k, v)
+            else:
+                _copy_state(lc, state)
+        x = self._add(x, y)
+        if not cfg.has_ffn(bt):
+            return x, None
+        if cfg.is_moe:
+            with obs.span("model.moe", cat="model", tokens=x.shape[0] * x.shape[1]):
+                return self._ffn(bp, x)
+        return self._ffn(bp, x)
 
     def _window(self, bt: str) -> int | None:
         return self.cfg.local_window if bt == "local_attn" else None
 
     def _ffn(self, bp: dict, x: torch.Tensor):
-        """The residual MLP or MoE half of an attention or ``rglru`` block:
+        """The residual MLP or MoE half of a block (``cfg.has_ffn``):
         (x, aux or None)."""
         cfg = self.cfg
         h2 = rmsnorm(x, bp["norm2"], cfg.norm_eps)
         if cfg.is_moe:
             y, aux = moe_ffn(bp["moe"], h2, cfg)
-            return x + y, aux
-        return x + mlp(bp["mlp"], h2, cfg.activation), None
+            return self._add(x, y), aux
+        return self._add(x, mlp(bp["mlp"], h2, cfg.activation)), None
 
     # ------------------------------------------------------------------
     # Training / encoder forward
@@ -516,14 +539,14 @@ class LM(nn.Module):
             if bt == "ssd":
                 out, state = ssd_decode_step(bp["ssd"], h, lc, cfg)
                 _copy_state(lc, state)
-                x = x + out
-                continue
-            if bt == "rglru":
+            elif bt == "rglru":
                 out, state = rglru_decode_step(bp["rglru"], h, lc, cfg)
                 _copy_state(lc, state)
             else:
                 out, _ = self._decode_attn(bt, bp["attn"], h, lc, pos)
-            x, _ = self._ffn(bp, x + out)
+            x = self._add(x, out)
+            if cfg.has_ffn(bt):
+                x, _ = self._ffn(bp, x)
         return self._head(top, x)[:, 0], cache
 
     def prefill(self, tokens: torch.Tensor, max_len: int | None = None) -> tuple[torch.Tensor, dict]:

@@ -31,6 +31,13 @@ the static cache, refills merge rows into it in place, and the logits
 are sampled after each replay, before the next.  Prefill and refills run
 eagerly.  A step that cannot be captured raises; nothing falls back.  A
 CPU model, or ``eager=True``, runs ``decode_step`` op by op.
+
+With the tracer on (:mod:`repro_torch.obs`) a batch's prefill records the
+span ``serve.prefill`` (the prefill, its copy into the decode graph's
+cache and the first token's sampling) and each lock-step decode
+``serve.decode_step`` (a replay or eager step, and its sampling); both end
+with the logits in host memory.  A request built with ``logits=[]`` gets
+the host logits each of its tokens was sampled from.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch._graphs import CapturedGraph, capture
 from repro_torch.models import LM
 from repro_torch.obs.log import MatchWarning
@@ -63,6 +71,8 @@ class Request:
     out_tokens: list[int] = field(default_factory=list)
     done: bool = False
     truncated: bool = False
+    # a list: the engine appends the float32 host logits (V,) each token was sampled from
+    logits: list | None = None
 
 
 def _leaves(tree) -> list:
@@ -170,6 +180,12 @@ class ServeEngine:
         (batch rows, ``max_len``)."""
         return {key: g.step.capture_ms for key, g in self._graphs.items()}
 
+    def capture(self, rows: int) -> None:
+        """Capture the decode graph of ``rows`` batch rows now, not at its
+        first use; nothing on an eager engine."""
+        if not self.eager:
+            self._graph_for(rows)
+
     def _graph_for(self, rows: int) -> _DecodeGraph:
         """The decode graph of ``rows`` batch rows, captured at first use
         on a zero cache (its warm-up step writes nothing that the prefill's
@@ -243,13 +259,14 @@ class ServeEngine:
         for i, r in enumerate(reqs):
             toks[i, plen - len(r.prompt) :] = r.prompt
 
-        logits, cache = self.model.prefill(self._tokens(toks), max_len=self.max_len)
-        cache = self._decode_cache(cache, B)
-        pos = plen
         slots = list(reqs)
+        with obs.span("serve.prefill", cat="serve", rows=B, tokens=plen):
+            logits, cache = self.model.prefill(self._tokens(toks), max_len=self.max_len)
+            cache = self._decode_cache(cache, B)
+            cur = self._sample(logits, slots)
+        pos = plen
         live = [True] * B
         served: list[Request] = []
-        cur = self._sample(logits, slots)
         for i, r in enumerate(slots):
             r.out_tokens.append(int(cur[i]))
 
@@ -290,9 +307,10 @@ class ServeEngine:
                     TruncationWarning,
                 )
                 return served
-            logits = self._decode(cache, cur, pos)
+            with obs.span("serve.decode_step", cat="serve"):
+                logits = self._decode(cache, cur, pos)
+                cur = self._sample(logits, slots)
             self.decode_steps += 1
-            cur = self._sample(logits, slots)
             pos += 1
             for i, r in enumerate(slots):
                 if live[i] and len(r.out_tokens) < r.max_new_tokens:
@@ -302,6 +320,8 @@ class ServeEngine:
         lg = logits.float().cpu().numpy()
         out = np.zeros(len(reqs), np.int32)
         for i, r in enumerate(reqs):
+            if r.logits is not None and not r.done and len(r.out_tokens) < r.max_new_tokens:
+                r.logits.append(lg[i])  # a row that gives the request a token
             if r.temperature <= 0:
                 out[i] = int(np.argmax(lg[i]))
             else:
