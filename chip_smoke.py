@@ -39,7 +39,13 @@ failure:
    ``q_offset``, causal); ``moe_gmm`` within 1e-4 (f32) and 2e-2 (bf16)
    on the kernel test grid, ragged, strided and misaligned operands and
    granite-moe-3b-a800m's shapes (C = 32, a refill's 16 and one slot's
-   decode, 8); ``ssd_scan`` (y and the final state) within 2e-4 of its
+   decode, 8), and granite-4.0-h-small's (a decode's 8 slots, a prefill's
+   256 and 512) with and without the routed rows; at granite-4.0-h-small's
+   decode and 256-slot prefill with the routed rows (10 of 72 experts a
+   decode, 100-190 pairs an expert in the prefill) within 2e-2 of the
+   plain product and bit for bit against the call without them on the
+   filled rows and 0 elsewhere, then timed beside it and beside every
+   expert empty, with the routed bytes as its bound; ``ssd_scan`` (y and the final state) within 2e-4 of its
    plain version and of the sequential oracle on the kernel test grid,
    ragged T and mamba2-1.3b's shapes, among them many chunks at full
    width ((1, 4096), (4, 512) and a ragged (1, 4095)); ``rglru_scan``
@@ -1854,9 +1860,33 @@ def granite_gmm_shapes() -> list[tuple[str, int, int, int, int]]:
     return [("wi", E, C, D, F), ("wo", E, C, F, D)]
 
 
+GRANITE_ARCH = "granite_4_0_h_small"
+
+
+def granite_h_gmm_shapes() -> list[tuple[str, int, int, int, int]]:
+    """(name, E, C, D, F) of granite-4.0-h-small's expert GEMMs at batch 1:
+    a decode step's 8 slots an expert, and an eager prefill's 256 and 512
+    (a 1,024-token prompt's power-of-two layouts)."""
+    cfg = get_config(GRANITE_ARCH)
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    return [(f"{C} {name}", E, C, *dims) for C in (8, 256, 512) for name, dims in (("wi", (D, F)), ("wo", (F, D)))]
+
+
+def granite_h_rows(E: int, C: int, g: torch.Generator) -> torch.Tensor:
+    """(1, E) int32 routed rows on the card at granite-4.0-h-small's
+    layouts: at C = 8 a decode's top-k experts hold one pair each, else a
+    prefill's ragged counts from C / 4 to 3 C / 4, one expert in ten empty."""
+    if C == 8:
+        return (torch.randperm(E, generator=g) < get_config(GRANITE_ARCH).top_k).int()[None].to(DEV)
+    counts = torch.randint(C // 4, 3 * C // 4 + 1, (1, E), generator=g, dtype=torch.int32)
+    return (counts * (torch.rand((1, E), generator=g) >= 0.1)).int().to(DEV)
+
+
 def phase_moe_gmm_kernel() -> dict:
-    """The grouped expert GEMM against its plain version on the card."""
-    cases = []  # (label, E, C, D, F, dtype, layout)
+    """The grouped expert GEMM against its plain version on the card,
+    granite-4.0-h-small's shapes with and without the routed rows."""
+    cases = []  # (label, E, C, D, F, dtype, layout, routed)
+    g = torch.Generator().manual_seed(30)
     for dtype in (torch.float32, torch.bfloat16):
         cases += [("grid", *s, dtype, "dense") for s in GMM_GRID]
         cases += [("ragged", *s, dtype, lay) for s in GMM_RAGGED for lay in ("dense", "strided")]
@@ -1866,12 +1896,16 @@ def phase_moe_gmm_kernel() -> dict:
         cases += [("granite", *s[1:], dtype, "strided") for s in granite_gmm_shapes()]  # (C, E, D) storage
         cases += [("misaligned", *s, dtype, "misaligned") for s in ((3, 37, 64, 72), (2, 33, 100, 65))]
         cases += [("misaligned", *s[1:], dtype, "misaligned") for s in granite_gmm_shapes()]
+        cases += [(f"granite-4.0-h{' rows' if r else ''}", *s[1:], dtype, "dense", r)
+                  for s in granite_h_gmm_shapes() for r in (False, True)]
+    cases = [c if len(c) == 8 else (*c, False) for c in cases]
     worst: dict[str, float] = {}
-    for i, (label, E, C, D, F, dtype, layout) in enumerate(cases):
+    for i, (label, E, C, D, F, dtype, layout, routed) in enumerate(cases):
         x, w = gmm_operands(E, C, D, F, dtype, seed=i, layout=layout)
-        got = moe_gmm(x, w)
+        rows = granite_h_rows(E, C, g) if routed else None
+        got = moe_gmm(x, w, rows)
         torch.cuda.synchronize()
-        want = moe_gmm_plain(x, w)
+        want = moe_gmm_plain(x, w, rows)
         if got.dtype != dtype or got.shape != (E, C, F) or not torch.isfinite(got).all():
             raise AssertionError(f"moe_gmm {label} {(E, C, D, F)} {dtype}: bad output")
         diff = (got.float() - want.float()).abs()
@@ -1916,6 +1950,62 @@ def phase_moe_gmm_timing() -> list[dict]:
               f"{row['plain_ms']:>9.5f} {row['library_ms']:>9.5f} {row['bound_ms']:>9.6f} "
               f"{'(' + row['bound_by'] + ')':9s} {BEFORE_MS['moe_gmm', name]:>9.5f}")
     return rows
+
+
+def phase_moe_gmm_routed() -> list[dict]:
+    """``moe_gmm`` at granite-4.0-h-small's expert products (bf16) given the
+    routed rows, beside the same call without them: the decode at batch 1
+    (C = 8, top-10 of 72 experts, one pair each; each call of the timed
+    loop routes to another of 8 draws of experts, as the layers do) and an
+    eager prefill's layout (C = 256, 100-190 pairs an expert).  Checked
+    first: within 2e-2 of the plain product with the same rows, and bit
+    for bit against the call without rows on the filled rows, 0 on the
+    rest.  ``empty_ms``: every expert empty (every block exits);
+    the bound: the routed experts' weights and the pairs' rows over
+    3.35 TB/s, or their operations."""
+    cfg = get_config(GRANITE_ARCH)
+    E, K = cfg.n_experts, cfg.top_k
+    print(f"[kernels] moe_gmm at {GRANITE_ARCH}'s expert products (bf16), ms per call in a CUDA graph, with the "
+          f"routed rows and without; bound = routed bytes / 3.35 TB/s or operations; hbm = the routed weights' "
+          f"bytes/s over 3.35 TB/s")
+    print(f"    {'GEMM':>10s} {'E':>3s} {'C':>4s} {'D':>5s} {'F':>5s} {'rows ms':>9s} {'all ms':>9s} {'empty ms':>9s} "
+          f"{'bound':>9s} {'':12s} {'hbm':>6s}")
+    out = []
+    g = torch.Generator().manual_seed(30)
+    wi, wo = (cfg.d_model, cfg.moe_d_ff), (cfg.moe_d_ff, cfg.d_model)
+    for name, C, D, F in (("decode wi", 8, *wi), ("decode wo", 8, *wo),
+                          ("prefill wi", 256, *wi), ("prefill wo", 256, *wo)):
+        x, w = gmm_operands(E, C, D, F, torch.bfloat16, seed=C + D)
+        if C == 8:
+            routings = [(torch.randperm(E, generator=g) < K).int()[None].to(DEV) for _ in range(8)]
+        else:
+            routings = [torch.randint(100, 191, (1, E), generator=g, dtype=torch.int32).to(DEV)]
+        full = moe_gmm(x, w)
+        for rows in routings:
+            got = moe_gmm(x, w, rows)
+            filled = (torch.arange(C, device=DEV)[None, :] < rows[0][:, None])[..., None].expand_as(got)
+            if not torch.equal(got[filled], full[filled]) or bool(got[~filled].any()):
+                raise AssertionError(f"moe_gmm {name} with rows: not the product on filled rows and 0 elsewhere")
+            want = moe_gmm_plain(x, w, rows).float()
+            tol = GMM_TOL[torch.bfloat16]
+            if bool(((got.float() - want).abs() > tol + tol * want.abs()).any()):
+                raise AssertionError(f"moe_gmm {name} with rows: beyond atol = rtol = {tol} of moe_gmm_plain")
+        turn = iter(range(1 << 30))
+        empty = torch.zeros_like(routings[0])
+        pairs = int(sum(int(r.sum()) for r in routings)) / len(routings)
+        experts = min(E, pairs) if C == 8 else E
+        row = {"gemm": name, "shape": [E, C, D, F], "pairs": pairs,
+               "ms": graph_ms(lambda: moe_gmm(x, w, routings[next(turn) % len(routings)])),
+               "all_ms": graph_ms(lambda: moe_gmm(x, w)),
+               "empty_ms": graph_ms(lambda: moe_gmm(x, w, empty))}
+        row["bound_ms"], row["bound_by"] = bound(2 * (experts * D * F + pairs * (D + F)), 2 * pairs * D * F,
+                                                 BF16_FLOPS_S)
+        row["hbm_share"] = 2 * experts * D * F / (row["ms"] * 1e-3) / HBM_BYTES_S
+        out.append(row)
+        print(f"    {name:>10s} {E:>3d} {C:>4d} {D:>5d} {F:>5d} {row['ms']:>9.5f} {row['all_ms']:>9.5f} "
+              f"{row['empty_ms']:>9.5f} {row['bound_ms']:>9.6f} {'(' + row['bound_by'] + ')':12s} "
+              f"{row['hbm_share']:>6.1%}")
+    return out
 
 
 def ssd_operands(B, H, T, P, N, bc_dtype, seed, *, decay=0.2):
@@ -2381,16 +2471,18 @@ def routing(record: list | None = None, replay: list | None = None):
     route, pending = moe_mod._route, list(replay or [])
 
     def recorded(probs, K, C):
-        slots, gates = route(probs, K, C)
+        slots, gates, counts = route(probs, K, C)
         if record is not None:
             record.append(slots)
-        return slots, gates
+        return slots, gates, counts
 
     def replayed(probs, K, C):
         slots = pending.pop(0)
         expert = torch.div(slots, C, rounding_mode="floor").clamp_min(0).long()
         gates = torch.where(slots >= 0, probs.gather(-1, expert), 0.0)
-        return slots, gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
+        one_hot = (expert[..., None] == torch.arange(probs.shape[-1], device=slots.device)) & (slots >= 0)[..., None]
+        return (slots, gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9),
+                one_hot.sum(dim=(1, 2), dtype=torch.int32))
 
     moe_mod._route = replayed if replay is not None else recorded
     try:
@@ -3709,6 +3801,7 @@ def main() -> None:
         flash_rows = phase_flash_timing()
         gmm = phase_moe_gmm_kernel()
         gmm_rows = phase_moe_gmm_timing()
+        gmm_routed = phase_moe_gmm_routed()
         ssd = phase_ssd_kernel()
         ssd_rows = phase_ssd_timing()
         phase_ssd_heads()
@@ -3781,7 +3874,8 @@ def main() -> None:
                      local_attn_shapes=shapes(rg_flash_rows),
                      launches_recurrentgemma=served[RG_ARCH]["launches"]["flash_attention"]),
         kernel_entry("moe_gmm", served[MOE_ARCH]["launches"]["moe_gmm"], gmm, gmm_rows[0],
-                     max_abs_err_f32=gmm["max_abs_err_f32"], serve_shapes=shapes(gmm_rows)),
+                     max_abs_err_f32=gmm["max_abs_err_f32"], serve_shapes=shapes(gmm_rows),
+                     routed_shapes=gmm_routed),
         kernel_entry("ssd_scan", served[SSD_ARCH]["launches"]["ssd_scan"], ssd, ssd_rows[0],
                      prefill_shapes=shapes(ssd_rows), prefill_long=longs[SSD_ARCH]["kernels"]["ssd_scan"]),
         kernel_entry("rglru_scan", served[RG_ARCH]["launches"]["rglru_scan"], rglru, rglru_rows[0],

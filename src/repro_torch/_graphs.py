@@ -21,6 +21,10 @@ and copy new data into them between replays.
 * returns a :class:`CapturedGraph` whose :meth:`~CapturedGraph.replay`
   adds those increases back, so the counters stay exact under replay.
 
+A counter that device code raises through an :func:`repro_torch.obs.device_tally`
+moves by itself under replay; reading the counters folds the warm-up's
+part in before :func:`uncounted` puts them back.
+
 A callable that cannot be captured (a host sync, a pageable copy, an
 allocation outside the graph's pool) raises :class:`GraphCaptureError`.
 Nothing falls back to running it eagerly: a CPU model never captures,

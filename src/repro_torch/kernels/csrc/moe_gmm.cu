@@ -26,12 +26,32 @@
 // loading: about 96 KB of w in flight per SM, against the ~20 KB that
 // 3.35 TB/s over 132 SMs needs at a microsecond of latency.  Grid: granite's
 // wi (F = 512) is 8 x 40 = 320 blocks, its wo (F = 1536) 24 x 40 = 960:
-// 2.4 and 7.3 blocks per SM.  Every capacity slot is computed, empty ones
-// included, as the Pallas kernel does (skipping them is not exact for
-// non-finite weights), and D is not split across blocks.  Operands whose
+// 2.4 and 7.3 blocks per SM.  D is not split across blocks.  Operands whose
 // rows do not start on 16 bytes (base pointer, a stride, an inner stride
 // other than 1, or D, F not multiples of 8) are staged by element loads
 // instead of cp.async: the ALIGNED template flag, which the wrapper picks.
+//
+// Routed rows.  The model lays x out as (E, B * cap, D): expert e's slots of
+// batch row b are rows b * cap .. b * cap + cap - 1, and only the first
+// rows[b][e] of them hold a (token, expert) pair; the rest are zero rows of
+// the dispatch.  Given rows (B, E) int32 on the device, a block first reads
+// the counts its tile spans; a tile that holds no pair reads no byte of x or
+// w, writes zeros to its y tile and exits.  A tile that holds a pair runs as
+// without rows (the same tiles and the same order of sums, so a filled row's
+// y is the same bit for bit) and writes 0 to its rows that hold none.  At
+// granite's decode (one token, 10 of 72 experts) a layer then reads 10
+// experts' weights, not 72.  Exact: an unfilled row's zero x gives 0 for
+// finite weights, and the model never reads an unfilled row (the Pallas
+// kernel computes every slot, so non-finite weights reach unfilled rows
+// there; the combine reads neither).  The counts are device data, so a
+// captured graph reads each replay's own routing.  With `tally`, each block
+// that runs adds its tile's rows to it (one atomicAdd, at blockIdx.x == 0):
+// the rows the products ran, read by the host when it reads its counters.  What
+// is left: a block of an empty expert is still launched, reads its counts and
+// writes its zeros, 3-5 us of granite's 26-27 us decode launch (a grid over
+// only the tiles that hold pairs would need a bound on them from the host);
+// the 120 blocks of its routed wi read w at about 60 % of HBM's bytes/s,
+// and a deeper ring (3 to 12 stages) does not raise that.
 // What remains: TMA loads and wgmma, and a persistent grid that balances
 // the 2.4 blocks per SM of wi.
 //
@@ -75,6 +95,38 @@ constexpr int bf16_smem_bytes() {
   return kStages * (BM * kLdX + kTK * kLdW) * static_cast<int>(sizeof(bf16));
 }
 
+// Whether rows [c0, c0 + nc) of expert e hold a routed pair: row r of the
+// (B * cap) rows holds one iff r % cap < rows[r / cap][e] (rows is (B, E),
+// row-major).
+__device__ __forceinline__ bool tile_routed(const int* __restrict__ rows, int cap, int e, int c0,
+                                            int nc) {
+  const int E = gridDim.z;
+  for (int b = c0 / cap; b * cap < c0 + nc; ++b)
+    if (max(c0 - b * cap, 0) < rows[b * E + e]) return true;
+  return false;
+}
+
+__device__ __forceinline__ void set_zero(bf16& v) { v = __float2bfloat16(0.f); }
+__device__ __forceinline__ void set_zero(float& v) { v = 0.f; }
+
+// The routed-rows prologue of a block that owns rows [c0, c0 + nc) and
+// columns [f0, f0 + nf) of expert e: false, after zeroing that tile of y,
+// when no row of it holds a pair; else true, after adding nc to the tally.
+template <typename T>
+__device__ __forceinline__ bool tile_runs(const int* __restrict__ rows, int cap,
+                                          unsigned long long* tally, T* ye, Strides ys,
+                                          int e, int c0, int nc, int f0, int nf) {
+  if (rows == nullptr) return true;
+  if (!tile_routed(rows, cap, e, c0, nc)) {
+    for (int i = threadIdx.x; i < nc * nf; i += blockDim.x)
+      set_zero(ye[(c0 + i / nf) * ys.r + (f0 + i % nf) * ys.c]);
+    return false;
+  }
+  if (tally != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(tally, static_cast<unsigned long long>(nc));
+  return true;
+}
+
 // One depth step's x tile (BM x kTK) and w tile (kTK x kTF) into a ring slot,
 // zero outside [0, nc) x [0, D) and [0, D) x [0, nf).
 template <int BM, bool ALIGNED>
@@ -114,7 +166,8 @@ template <int MT, bool ALIGNED>  // MT: m16 tiles of rows per block (BM = 16 MT 
 __global__ void __launch_bounds__(kThreads)
     moe_gmm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                         bf16* __restrict__ y, int C, int D, int F, Strides xs, Strides ws,
-                        Strides ys) {
+                        Strides ys, const int* __restrict__ rows, int cap,
+                        unsigned long long* tally) {
   using namespace mma_sm90;
   constexpr int BM = 16 * MT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -123,9 +176,10 @@ __global__ void __launch_bounds__(kThreads)
 
   const int e = blockIdx.z, c0 = blockIdx.y * BM, f0 = blockIdx.x * kTF;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nc = min(BM, C - c0), nf = min(kTF, F - f0);
+  if (!tile_runs(rows, cap, tally, y + e * ys.e, ys, e, c0, nc, f0, nf)) return;
   const bf16* xe = x + e * xs.e + c0 * xs.r;
   const bf16* we = w + e * ws.e + f0 * ws.c;
-  const int nc = min(BM, C - c0), nf = min(kTF, F - f0);
   const int n_k = (D + kTK - 1) / kTK;
 
   // prologue: kStages - 1 steps in flight (one commit group per step, empty
@@ -174,19 +228,23 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // C-fragments straight to y: (row g, columns 2t, 2t + 1) and row g + 8
+  // C-fragments straight to y: (row g, columns 2t, 2t + 1) and row g + 8;
+  // a row that holds no pair gets 0
   const int g = lane >> 2, t = lane & 3;
   bf16* ye = y + e * ys.e;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int half = 0; half < 2; ++half) {
+      const int row = c0 + mt * 16 + g + 8 * half;
+      if (row >= C) continue;
+      const bool routed = rows == nullptr || __ldg(rows + row / cap * gridDim.z + e) > row % cap;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = c0 + mt * 16 + g + 8 * half;
+      for (int nt = 0; nt < 2; ++nt) {
         const int col = f0 + warp * 16 + nt * 8 + 2 * t;
-        if (row >= C || col >= F) continue;
-        const float lo = acc[mt][nt][2 * half], hi = acc[mt][nt][2 * half + 1];
+        if (col >= F) continue;
+        const float lo = routed ? acc[mt][nt][2 * half] : 0.f;
+        const float hi = routed ? acc[mt][nt][2 * half + 1] : 0.f;
         bf16* dst = ye + row * ys.r + col * ys.c;
         if constexpr (ALIGNED) {  // F % 8 == 0: col < F means col + 1 < F; 4-byte aligned
           *reinterpret_cast<uint32_t*>(dst) = pack_bf16(lo, hi);
@@ -195,11 +253,20 @@ __global__ void __launch_bounds__(kThreads)
           if (col + 1 < F) dst[ys.c] = __float2bfloat16_rn(hi);
         }
       }
+    }
 }
+
+// The routed rows of a launch: rows (B, E) int32 or null, cap = C / B, and
+// the tally or null.
+struct Routed {
+  const int* rows;
+  int cap;
+  unsigned long long* tally;
+};
 
 template <int MT, bool ALIGNED>
 int launch_bf16(const void* x, const void* w, void* y, int E, int C, int D, int F, Strides xs,
-                Strides ws, Strides ys, cudaStream_t stream) {
+                Strides ws, Strides ys, Routed rt, cudaStream_t stream) {
   auto kern = moe_gmm_bf16_kernel<MT, ALIGNED>;
   constexpr int smem = bf16_smem_bytes<16 * MT>();
   if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic shared memory
@@ -209,15 +276,16 @@ int launch_bf16(const void* x, const void* w, void* y, int E, int C, int D, int 
   }
   const dim3 grid((F + kTF - 1) / kTF, (C + 16 * MT - 1) / (16 * MT), E);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                                         static_cast<bf16*>(y), C, D, F, xs, ws, ys);
+                                         static_cast<bf16*>(y), C, D, F, xs, ws, ys, rt.rows,
+                                         rt.cap, rt.tally);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool ALIGNED>
 int launch_bf16_c(const void* x, const void* w, void* y, int E, int C, int D, int F, Strides xs,
-                  Strides ws, Strides ys, cudaStream_t stream) {
-  if (C <= 16) return launch_bf16<1, ALIGNED>(x, w, y, E, C, D, F, xs, ws, ys, stream);
-  return launch_bf16<2, ALIGNED>(x, w, y, E, C, D, F, xs, ws, ys, stream);
+                  Strides ws, Strides ys, Routed rt, cudaStream_t stream) {
+  if (C <= 16) return launch_bf16<1, ALIGNED>(x, w, y, E, C, D, F, xs, ws, ys, rt, stream);
+  return launch_bf16<2, ALIGNED>(x, w, y, E, C, D, F, xs, ws, ys, rt, stream);
 }
 
 // ----------------------------------------------------------------- f32 ---
@@ -232,11 +300,14 @@ constexpr int kCols = kBF / kTX;  // columns per thread
 __global__ void __launch_bounds__(kThreads)
     moe_gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                        float* __restrict__ y, int C, int D, int F, Strides xs, Strides ws,
-                       Strides ys) {
+                       Strides ys, const int* __restrict__ rows, int cap,
+                       unsigned long long* tally) {
   __shared__ float xS[kBC][kBD + 1];
   __shared__ float wS[kBD][kBF];
 
   const int e = blockIdx.z, c0 = blockIdx.y * kBC, f0 = blockIdx.x * kBF;
+  if (!tile_runs(rows, cap, tally, y + e * ys.e, ys, e, c0, min(kBC, C - c0), f0, min(kBF, F - f0)))
+    return;
   const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
   const float* xe = x + e * xs.e;
   const float* we = w + e * ws.e;
@@ -276,25 +347,26 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the tiles are read before the next step overwrites them
   }
 
-  float* ye = y + e * ys.e;
+  float* ye = y + e * ys.e;  // a row that holds no pair gets 0
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int c = c0 + ty + kTY * r;
     if (c >= C) continue;
+    const bool routed = rows == nullptr || __ldg(rows + c / cap * gridDim.z + e) > c % cap;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int f = f0 + tx + kTX * j;
-      if (f < F) ye[c * ys.r + f * ys.c] = acc[r][j];
+      if (f < F) ye[c * ys.r + f * ys.c] = routed ? acc[r][j] : 0.f;
     }
   }
 }
 
 int launch_f32(const void* x, const void* w, void* y, int E, int C, int D, int F, Strides xs,
-               Strides ws, Strides ys, cudaStream_t stream) {
+               Strides ws, Strides ys, Routed rt, cudaStream_t stream) {
   const dim3 grid((F + kBF - 1) / kBF, (C + kBC - 1) / kBC, E);
-  moe_gmm_f32_kernel<<<grid, kThreads, 0, stream>>>(static_cast<const float*>(x),
-                                                     static_cast<const float*>(w),
-                                                     static_cast<float*>(y), C, D, F, xs, ws, ys);
+  moe_gmm_f32_kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y), C, D, F,
+      xs, ws, ys, rt.rows, rt.cap, rt.tally);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -304,17 +376,22 @@ int launch_f32(const void* x, const void* w, void* y, int E, int C, int D, int F
 // by their three strides each, in elements; bf16 != 0 means all three are
 // bf16, else f32.  aligned != 0 (bf16 only) promises unit inner strides,
 // D % 8 == 0, F % 8 == 0 and every row of the three starting on 16 bytes,
-// so rows are staged by 16-byte cp.async copies.  The wrapper keeps
+// so rows are staged by 16-byte cp.async copies.  rows, if not null, is a
+// contiguous (C / cap, E) int32 array of routed rows on the device (the
+// wrapper keeps C a multiple of cap >= 1); tally, if not null, an int64 on
+// the device that the launch adds the rows it runs to.  The wrapper keeps
 // E, C, F >= 1, D >= 0, C <= 65535 * 32 and E <= 65535.  Launches on
 // `stream`, does not synchronise, and returns the CUDA error code (0 =
 // launched).
 extern "C" int moe_gmm_launch(const void* x, const void* w, void* y, int bf16, int aligned,
                               int E, int C, int D, int F, long long x_se, long long x_sc,
                               long long x_sd, long long w_se, long long w_sd, long long w_sf,
-                              long long y_se, long long y_sc, long long y_sf, void* stream) {
+                              long long y_se, long long y_sc, long long y_sf, const void* rows,
+                              int cap, void* tally, void* stream) {
   const Strides xs{x_se, x_sc, x_sd}, ws{w_se, w_sd, w_sf}, ys{y_se, y_sc, y_sf};
+  const Routed rt{static_cast<const int*>(rows), cap, static_cast<unsigned long long*>(tally)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16 && aligned) return launch_bf16_c<true>(x, w, y, E, C, D, F, xs, ws, ys, st);
-  if (bf16) return launch_bf16_c<false>(x, w, y, E, C, D, F, xs, ws, ys, st);
-  return launch_f32(x, w, y, E, C, D, F, xs, ws, ys, st);
+  if (bf16 && aligned) return launch_bf16_c<true>(x, w, y, E, C, D, F, xs, ws, ys, rt, st);
+  if (bf16) return launch_bf16_c<false>(x, w, y, E, C, D, F, xs, ws, ys, rt, st);
+  return launch_f32(x, w, y, E, C, D, F, xs, ws, ys, rt, st);
 }

@@ -18,7 +18,9 @@ and its default formulation (``moe_dispatch="token"``,
   (no boolean-mask indexing), so a CUDA graph captures a decode step.
 * The three expert products run through :func:`repro_torch.kernels.moe_gmm`
   (the hand-written CUDA kernel on the card), where the reference has
-  ``jnp.einsum``.
+  ``jnp.einsum``.  They take the routing's per-expert counts (on the
+  device), so the kernel skips every tile of slots that no pair filled:
+  a decode step reads the weights of the experts its tokens went to.
 * Combine gathers each token's K slots back through one zero pad row, so
   dropped tokens contribute zero, and sums them weighted by their gates.
 * The Switch/GShard load-balancing aux loss.
@@ -78,9 +80,11 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(torch.int32)
 
 
-def _route(probs: torch.Tensor, K: int, C: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _route(probs: torch.Tensor, K: int, C: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routing with per-expert capacity: (slots, gates), each
-    (B, S, K).  A slot is ``expert * C + position`` or -1 (dropped)."""
+    (B, S, K), and counts (B, E) int32, the slots each expert filled in
+    each batch row (positions 0 .. count - 1, at most ``C``).  A slot is
+    ``expert * C + position`` or -1 (dropped)."""
     B, S, E = probs.shape
     remaining = probs
     counts = torch.zeros((B, E), dtype=torch.int32, device=probs.device)
@@ -99,12 +103,12 @@ def _route(probs: torch.Tensor, K: int, C: int) -> tuple[torch.Tensor, torch.Ten
     slots_t = torch.stack(slots, dim=-1)
     gates_t = torch.stack(gates, dim=-1)
     gates_t = gates_t / torch.clamp_min(gates_t.sum(dim=-1, keepdim=True), 1e-9)
-    return slots_t, gates_t
+    return slots_t, gates_t, torch.clamp_max(counts, C)
 
 
-def _dropless_capacity(c_idx: torch.Tensor, kept: torch.Tensor, C: int, n_experts: int, pairs: int) -> int:
+def _dropless_capacity(c_idx: torch.Tensor, kept: torch.Tensor, C: int, pairs: int) -> int:
     """The capacity a dropless layer lays its experts out at, and its
-    ``moe.*`` counters.
+    ``moe.routed_pairs`` and ``moe.dropped`` counters.
 
     Routing at :func:`moe_capacity`'s bound ``C`` keeps every pair.  An
     eager call with more than 8 tokens a group (a prefill) then lays the
@@ -113,16 +117,16 @@ def _dropless_capacity(c_idx: torch.Tensor, kept: torch.Tensor, C: int, n_expert
     counts the pairs dropped.  The few sizes this gives let every prompt
     reuse a layout an earlier one allocated.  A call with at most
     8 (a decode step), or one a CUDA graph is capturing, keeps ``C`` and
-    reads nothing.  Counted: ``moe.routed_pairs`` (the pairs kept),
-    ``moe.rows_computed`` (the rows the expert products run, padding
-    included) and ``moe.dropped``; under replay :mod:`repro_torch._graphs`
-    adds the counts of the capture."""
+    reads nothing.  Counted: ``moe.routed_pairs`` (the pairs kept) and
+    ``moe.dropped``; under replay :mod:`repro_torch._graphs` adds the
+    counts of the capture.  ``moe.rows_computed`` (the rows the expert
+    products run, the padding of the tiles that run included) is the
+    products' device tally."""
     dropped = 0
     if C > 8 and not (c_idx.is_cuda and torch.cuda.is_current_stream_capturing()):
         most, dropped = torch.stack([c_idx.amax().long(), (~kept).sum()]).tolist()
         C = min(C, max(8, 1 << most.bit_length()))
     obs.counter("moe.routed_pairs").inc(pairs - dropped)
-    obs.counter("moe.rows_computed").inc(n_experts * kept.shape[0] * C)
     obs.counter("moe.dropped").inc(dropped)
     return C
 
@@ -135,13 +139,15 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
 
     logits = upcast(x) @ params["router"]  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
-    slots, gates = _route(probs, K, C)
+    slots, gates, counts = _route(probs, K, C)
 
     # ---- dispatch: rows of (x | zero pad row) gathered in (E, B, C) order --
     kept = slots >= 0
     e_idx, c_idx = torch.div(slots, C, rounding_mode="floor"), slots % C
+    tally = None
     if cfg.moe_dropless:
-        C = _dropless_capacity(c_idx, kept, C, E, B * S * K)
+        C = _dropless_capacity(c_idx, kept, C, B * S * K)
+        tally = obs.device_tally("moe.rows_computed", x.device)
     b_idx = torch.arange(B, device=x.device)[:, None, None].expand(B, S, K)
     s_idx = torch.arange(S, device=x.device)[None, :, None].expand(B, S, K)
     dst = (e_idx * B + b_idx) * C + c_idx  # row of (E, B*C); every kept one is unique
@@ -155,10 +161,11 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
     dispatched = xpad[src_for_slot[:spare]].reshape(E, B * C, D)
 
     # ---- expert computation (the only FLOP-heavy part) -------------------
-    g = moe_gmm(dispatched, params["wi_gate"])
-    u = moe_gmm(dispatched, params["wi_up"])
+    # only the tiles that hold a pair run; the first product counts them
+    g = moe_gmm(dispatched, params["wi_gate"], counts, tally=tally)
+    u = moe_gmm(dispatched, params["wi_up"], counts)
     h = F.silu(g) * u
-    eo = moe_gmm(h, params["wo"]).reshape(E * B * C, D)
+    eo = moe_gmm(h, params["wo"], counts).reshape(E * B * C, D)
 
     # ---- combine: each token's K slots back through one zero pad row -------
     eo_pad = torch.cat([eo, eo.new_zeros((1, D))])

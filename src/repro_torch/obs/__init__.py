@@ -59,6 +59,7 @@ from .metrics import (
     Gauge,
     Histogram,
     counter,
+    device_tally,
     gauge,
     histogram,
     metrics_dict,
@@ -108,6 +109,7 @@ __all__ = [
     "WindowedSketch",
     "arm_flight",
     "counter",
+    "device_tally",
     "disable_tracing",
     "disarm_flight",
     "drift_dict",

@@ -15,6 +15,12 @@ ordinary test runs.  Thread safety is one process-wide lock taken only
 on first-registration and on histogram observes; counter/gauge updates
 ride on atomic-under-the-GIL int/float stores.
 
+A counter that device code raises keeps a device tally
+(:func:`device_tally`: an int64 that a kernel adds to, as ``moe_gmm``
+adds the rows it runs), so a captured CUDA graph's replays count with no
+host read.  :func:`metrics_dict` folds each tally into its counter, one
+host read a tally; :func:`reset_metrics` zeroes them.
+
 Stdlib-only at import, like the rest of ``repro_torch.obs``.
 """
 
@@ -30,6 +36,7 @@ __all__ = [
     "Gauge",
     "Histogram",
     "counter",
+    "device_tally",
     "gauge",
     "histogram",
     "metrics_dict",
@@ -132,6 +139,8 @@ _LOCK = threading.Lock()
 _COUNTERS: dict[str, Counter] = {}
 _GAUGES: dict[str, Gauge] = {}
 _HISTOGRAMS: dict[str, Histogram] = {}
+# (counter name, device) -> the int64 torch tensor that device code adds to
+_TALLIES: dict[tuple[str, str], object] = {}
 
 
 def _get(table: dict, cls, name: str):
@@ -155,9 +164,34 @@ def histogram(name: str) -> Histogram:
     return _get(_HISTOGRAMS, Histogram, name)
 
 
+def device_tally(name: str, device) -> object:
+    """The int64 tensor on ``device`` that device code adds to on behalf
+    of the counter ``name``: zero at first use, then kept at one address
+    for the process (a CUDA graph captures its pointer), so first use it
+    outside a capture."""
+    import torch
+
+    device = torch.device(device)
+    key = (name, str(device))
+    t = _TALLIES.get(key)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the device tally of {name!r} is first used inside a capture: warm up first")
+        with _LOCK, torch.inference_mode(False):
+            t = _TALLIES.setdefault(key, torch.zeros((), dtype=torch.int64, device=device))
+    return t
+
+
 def metrics_dict() -> dict:
-    """JSON-safe snapshot of every registered metric, sorted by name."""
+    """JSON-safe snapshot of every registered metric, sorted by name,
+    once each device tally is folded into its counter (a host read that
+    waits for the device work queued before it; not inside a capture)."""
     with _LOCK:
+        for (name, _), t in _TALLIES.items():
+            n = int(t)
+            if n:
+                _COUNTERS.setdefault(name, Counter(name)).inc(n)
+                t.zero_()
         return {
             "counters": {k: m.to_value() for k, m in sorted(_COUNTERS.items())},
             "gauges": {k: m.to_value() for k, m in sorted(_GAUGES.items())},
@@ -171,3 +205,5 @@ def reset_metrics() -> None:
         _COUNTERS.clear()
         _GAUGES.clear()
         _HISTOGRAMS.clear()
+        for t in _TALLIES.values():
+            t.zero_()

@@ -7,7 +7,8 @@ lengths, on misaligned rows and on rows with no valid key), one net through the 
 whose prefill goes through the flash kernel, the two scans over many
 time chunks at full width (``rglru_scan`` on both sides of its short-T
 threshold, both with decays slow enough that the carried state shows),
-2-layer MoE and mamba2 LMs through ``moe_gmm`` and ``ssd_scan``, and a 3-layer recurrentgemma
+2-layer MoE and mamba2 LMs through ``moe_gmm`` and ``ssd_scan`` (``moe_gmm`` also with
+routed rows, and one captured MoE decode replayed under two routings), and a 3-layer recurrentgemma
 LM through ``rglru_scan`` and the windowed flash kernel.  Marked ``cuda``; without a
 card each test skips (decided inside the fixture, never at import)."""
 
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import _graphs, obs
 from repro_torch.backend import lower
 from repro_torch.cnn import execute_graph, init_graph_params, mlperf_tiny_networks, params_to_torch
 from repro_torch.core import dispatch
@@ -37,6 +39,7 @@ from repro_torch.kernels import (
 )
 from repro_torch.kernels.ref import rglru_scan_ref, ssd_scan_ref
 from repro_torch.models import LM
+from repro_torch.models import moe as pmoe
 
 pytestmark = pytest.mark.cuda
 
@@ -526,6 +529,105 @@ def test_moe_gmm_bf16_decode_slot_and_layouts(cuda, E, C, D, F, layout):
         x = x.transpose(0, 1).contiguous().transpose(0, 1)
     got = moe_gmm(x, w)
     torch.testing.assert_close(got.float(), moe_gmm_plain(x, w).float(), atol=2e-2, rtol=2e-2)
+
+
+def _granite_decode_rows(B, E, filled, seed):
+    """(B, E) int32: ``filled`` experts of each batch row hold one pair."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.stack([(torch.randperm(E, generator=g) < filled).int() for _ in range(B)])
+
+
+# (label, E, B, cap, D, F, rows): granite's decode (10 of 72 experts, wi and
+# wo), B = 4 decode rows, a ragged prefill of 256 slots an expert (about 142
+# pairs, some experts empty), and a misaligned F in f32
+ROUTED_CASES = [
+    ("decode wi", 72, 1, 8, 4096, 768, lambda: _granite_decode_rows(1, 72, 10, 0)),
+    ("decode wo", 72, 1, 8, 768, 4096, lambda: _granite_decode_rows(1, 72, 10, 1)),
+    ("decode B=4", 72, 4, 8, 4096, 768, lambda: _granite_decode_rows(4, 72, 10, 2)),
+    ("prefill 256", 72, 1, 256, 4096, 768,
+     lambda: torch.randint(60, 257, (1, 72), generator=torch.Generator().manual_seed(3), dtype=torch.int32)
+     * (torch.arange(72) % 9 != 0)),
+    ("prefill B=4", 6, 4, 40, 96, 70, lambda: torch.randint(0, 41, (4, 6), generator=torch.Generator().manual_seed(4),
+                                                           dtype=torch.int32)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,E,B,cap,D,F,draw", ROUTED_CASES)
+def test_moe_gmm_with_rows_matches_the_kernel_without_them(cuda, label, E, B, cap, D, F, draw, dtype):
+    """Within the kernel's tolerance of the plain product with the same
+    rows; bit for bit against the kernel without rows on the rows that
+    hold a pair, 0 on the rest; and the tally the plain version's count of
+    the rows of the tiles that run."""
+    rng = np.random.default_rng(E * cap + F)
+    rows = draw().to(cuda, torch.int32)
+    x = torch.from_numpy(rng.normal(size=(E, B * cap, D)).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((rng.normal(size=(E, D, F)) / np.sqrt(D)).astype(np.float32)).to(cuda, dtype)
+    tally, want_tally = (torch.zeros((), dtype=torch.int64, device=cuda) for _ in range(2))
+    before = moe_gmm.launches
+    got = moe_gmm(x, w, rows, tally=tally)
+    full = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 2
+    want = moe_gmm_plain(x, w, rows, tally=want_tally)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=label)
+    filled = moe_gmm_plain(torch.ones_like(x[..., :1]), torch.ones_like(w[:, :1, :1]), rows) != 0
+    filled = filled.expand_as(got)
+    assert torch.equal(got[filled], full[filled]), label
+    assert not got[~filled].any(), label
+    assert int(tally) == int(want_tally), label
+
+
+def _moe_layer(cuda, dtype):
+    """granite-4.0-h's smoke MoE layer (dropless, a shared expert) on the card."""
+    cfg = get_smoke("granite_4_0_h_small").replace(dtype=dtype)
+    g = torch.Generator().manual_seed(0)
+
+    def draw(specs):
+        return {k: draw(v) if isinstance(v, dict) else
+                (torch.randn(v.shape, generator=g) / v.shape[0] ** 0.5).to(cuda, getattr(torch, v.dtype))
+                for k, v in specs.items()}
+
+    return cfg, draw(pmoe.moe_params(cfg))
+
+
+COUNTERS = ("moe.routed_pairs", "moe.rows_computed", "moe.dropped")
+
+
+def _moved(before):
+    after = obs.metrics_dict()["counters"]
+    return {k: after.get(k, 0) - before.get(k, 0) for k in COUNTERS}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_captured_moe_decode_reads_each_replays_routing(cuda, dtype):
+    """One graph of a B = 2 decode layer, replayed on two inputs that route
+    to different experts: each replay gives what the layer gives eagerly,
+    bit for bit, and the moe counters move as eagerly."""
+    cfg, params = _moe_layer(cuda, dtype)
+    g = torch.Generator().manual_seed(1)
+    inputs = [torch.randn((2, 1, cfg.d_model), generator=g).to(cuda, getattr(torch, dtype)) for _ in range(2)]
+    with torch.inference_mode():
+        routes = [pmoe._route(torch.softmax(x.float() @ params["router"], -1), cfg.top_k, 8)[2] for x in inputs]
+        assert not torch.equal(routes[0], routes[1])
+        want, eager = [], []
+        for x in inputs:
+            before = obs.metrics_dict()["counters"]
+            want.append(pmoe.moe_ffn(params, x, cfg)[0])
+            eager.append(_moved(before))
+        static = inputs[0].clone()
+        before = obs.metrics_dict()["counters"]
+        graph = _graphs.capture(lambda: pmoe.moe_ffn(params, static, cfg)[0], cuda)
+        assert _moved(before) == dict.fromkeys(COUNTERS, 0)  # warm-up and capture uncounted
+        for i in (1, 0, 1):
+            static.copy_(inputs[i])
+            before = obs.metrics_dict()["counters"]
+            out = graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want[i]), i
+            assert _moved(before) == eager[i], i
+    assert eager[0]["moe.rows_computed"] > 0 and eager[0]["moe.routed_pairs"] == 2 * cfg.top_k
 
 
 # the kernel test grid, ragged shapes, rows the kernels cannot read as

@@ -243,8 +243,9 @@ def test_a_router_that_sends_every_token_to_one_expert_drops_nothing():
     after = obs.metrics_dict()["counters"]
     moved = {k: after.get(k, 0) - before.get(k, 0) for k in ("moe.routed_pairs", "moe.rows_computed", "moe.dropped")}
     pairs = lm.cfg.n_layers * tokens.numel() * lm.cfg.top_k
+    # only experts 0 and 1 hold pairs, every slot of theirs: only their tiles run
     assert moved == {"moe.routed_pairs": pairs, "moe.dropped": 0,
-                     "moe.rows_computed": lm.cfg.n_layers * lm.cfg.n_experts * len(tokens) * PROMPT}
+                     "moe.rows_computed": lm.cfg.n_layers * lm.cfg.top_k * len(tokens) * PROMPT}
     want = reference_logits(config, drawn, tokens)
     assert worst(got, want) <= 1.0
     # the same routing through capacity-factor routing drops most pairs
@@ -262,14 +263,17 @@ def test_dropless_capacity_lays_the_experts_out_at_the_most_pairs_any_received()
     assert pmoe.moe_capacity(cfg, 1000) == 1000
     c_idx = torch.tensor([[[0, 3], [1, 11]]])  # the most any expert received: 12
     kept = torch.ones_like(c_idx, dtype=torch.bool)
-    before = obs.metrics_dict()["counters"].get("moe.rows_computed", 0)
-    assert pmoe._dropless_capacity(c_idx, kept, 24, cfg.n_experts, 4) == 16
-    assert obs.metrics_dict()["counters"]["moe.rows_computed"] - before == cfg.n_experts * 16
+    before = obs.metrics_dict()["counters"]
+    assert pmoe._dropless_capacity(c_idx, kept, 24, 4) == 16
+    after = obs.metrics_dict()["counters"]
+    # the pairs here; the rows are the expert products' device tally
+    assert after["moe.routed_pairs"] - before.get("moe.routed_pairs", 0) == 4
+    assert after.get("moe.rows_computed", 0) == before.get("moe.rows_computed", 0)
     for most, bound, want in ((0, 24, 8), (7, 24, 8), (8, 24, 16), (16, 24, 24), (16, 40, 32), (200, 1024, 256),
                               (256, 1024, 512)):
-        assert pmoe._dropless_capacity(torch.tensor([[[most]]]), kept[..., :1, :1], bound, 1, 1) == want
+        assert pmoe._dropless_capacity(torch.tensor([[[most]]]), kept[..., :1, :1], bound, 1) == want
     # a decode step (at most 8 tokens a group) keeps the bound and reads nothing
-    assert pmoe._dropless_capacity(c_idx[..., :1], kept[..., :1], 8, cfg.n_experts, 2) == 8
+    assert pmoe._dropless_capacity(c_idx[..., :1], kept[..., :1], 8, 2) == 8
 
 
 def test_prompts_that_route_differently_share_a_prefill_layout():
@@ -280,9 +284,9 @@ def test_prompts_that_route_differently_share_a_prefill_layout():
     sizes, seen = [], []
     record = pmoe._dropless_capacity
 
-    def spy(c_idx, kept, C, n_experts, pairs):
+    def spy(c_idx, kept, C, pairs):
         seen.append(int(c_idx.amax()) + 1)
-        out = record(c_idx, kept, C, n_experts, pairs)
+        out = record(c_idx, kept, C, pairs)
         sizes.append(out)
         return out
 

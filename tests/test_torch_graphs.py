@@ -182,7 +182,7 @@ def _mask_dispatch_moe_ffn(params, x, cfg):
     E, K = cfg.n_experts, cfg.top_k
     C = pmoe.moe_capacity(cfg, S)
     probs = torch.softmax(x.float() @ params["router"], dim=-1)
-    slots, gates = pmoe._route(probs, K, C)
+    slots, gates, _ = pmoe._route(probs, K, C)
     kept = slots >= 0
     e_idx, c_idx = torch.div(slots, C, rounding_mode="floor"), slots % C
     b_idx = torch.arange(B)[:, None, None].expand(B, S, K)
