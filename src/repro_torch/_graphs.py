@@ -19,7 +19,11 @@ and copy new data into them between replays.
   then puts every counter back where it stood before the warm-up
   (:func:`uncounted`): a capture launches nothing that a user asked for;
 * returns a :class:`CapturedGraph` whose :meth:`~CapturedGraph.replay`
-  adds those increases back, so the counters stay exact under replay.
+  adds those increases back, so the counters stay exact under replay;
+* keeps Python's cyclic collector off while it captures: a dead cycle
+  that holds another graph, collected then, would destroy that graph in
+  the middle of the capture and so invalidate it (``torch.cuda.graph``
+  no longer collects before a capture).
 
 A counter that device code raises through an :func:`repro_torch.obs.device_tally`
 moves by itself under replay; reading the counters folds the warm-up's
@@ -34,6 +38,7 @@ and its callers run it op by op.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -138,8 +143,14 @@ def capture(fn: Callable[[], Any], device: torch.device, *, warmup: int = 1) -> 
             torch.cuda.synchronize(device)
             start, start_obs = launch_counts(), _obs_counts()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                output = fn()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph):
+                    output = fn()
+            finally:
+                if collecting:
+                    gc.enable()
             end, end_obs = launch_counts(), _obs_counts()
             torch.cuda.synchronize(device)
     except Exception as e:

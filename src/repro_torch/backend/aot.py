@@ -149,16 +149,14 @@ class AotModel:
     own pool; ``memory="arena"`` expresses the static :class:`MemoryPlan`
     literally (one flat arena, every buffer at its planned offset,
     cross-module boundaries staged through two alternating double-buffer
-    slots).  ``staging=False`` keeps boundary tensors at their planned
-    offsets instead.
+    slots).
     """
 
-    def __init__(self, compiled: "CompiledModel", *, memory: str = "xla", staging: bool = True):
+    def __init__(self, compiled: "CompiledModel", *, memory: str = "xla"):
         if memory not in ("xla", "arena"):
             raise ValueError(f"memory must be 'xla' or 'arena', got {memory!r}")
         self.compiled = compiled
         self.memory = memory
-        self.staging = bool(staging)
         self._entries: dict[tuple, AotEntry] = {}
         self._lock = threading.Lock()
         self._dispatch_overhead: dict | None = None
@@ -317,12 +315,11 @@ class AotModel:
             for nm in ls.input_names:
                 consumers_of.setdefault(nm, set()).add(i)
         staged: dict[str, int] = {}
-        if self.staging:
-            for b in self._boundaries:
-                t = b["tensor"]
-                nxt = next(i for i, ls in enumerate(segments) if ls.name == b["consumer"])
-                if t in place and consumers_of.get(t, set()) == {nxt} and t not in graph.outputs:
-                    staged[t] = b["slot"]
+        for b in self._boundaries:
+            t = b["tensor"]
+            nxt = next(i for i, ls in enumerate(segments) if ls.name == b["consumer"])
+            if t in place and consumers_of.get(t, set()) == {nxt} and t not in graph.outputs:
+                staged[t] = b["slot"]
         slot_elems = [0, 0]
         for t, s in staged.items():
             slot_elems[s] = max(slot_elems[s], elems(t))
@@ -492,7 +489,7 @@ class AotModel:
             "mode": self.memory,
             "segments": len(self.compiled.segments),
             "staging": {
-                "enabled": self.staging,
+                "enabled": True,
                 "slots": 2,
                 "boundaries": [dict(b) for b in self._boundaries],
                 "predicted_overlap_cycles": self.predicted_overlap_cycles(),
@@ -504,7 +501,7 @@ class AotModel:
         }
 
 
-def compile_aot(compiled: "CompiledModel", *, memory: str = "xla", staging: bool = True) -> AotModel:
+def compile_aot(compiled: "CompiledModel", *, memory: str = "xla") -> AotModel:
     """Fuse a :class:`CompiledModel` into one whole-graph executor.
 
     The returned :class:`AotModel` captures lazily: on
@@ -512,7 +509,7 @@ def compile_aot(compiled: "CompiledModel", *, memory: str = "xla", staging: bool
     (params, input shapes/dtypes) signature, then cached.  See the module
     docstring for the ``memory`` modes.
     """
-    return AotModel(compiled, memory=memory, staging=staging)
+    return AotModel(compiled, memory=memory)
 
 
 # ---------------------------------------------------------------------------

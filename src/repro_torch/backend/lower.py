@@ -139,15 +139,14 @@ def _fused_reference_fn(
     return fn
 
 
-def _tiled_conv_impl(anchor: Node, ksched: KernelSchedule | None, band_tiling: bool):
+def _tiled_conv_impl(anchor: Node, ksched: KernelSchedule | None):
     """Anchor override running the banded conv with the winning schedule's
-    OY tile as the band size (one whole-array band when the caller
-    disables band tiling for host-throughput runs)."""
+    OY tile as the band size (one whole-array band without a schedule)."""
     stride = int(anchor.attr("stride", 1) or 1)
     depthwise = anchor.op == "dwconv2d"
     oy = int(anchor.attr("OY", 1) or 1)
     block_oy = oy
-    if band_tiling and ksched is not None:
+    if ksched is not None:
         block_oy = max(1, min(int(ksched.block_of("OY", oy)), oy))
 
     def impl(p: dict, x):
@@ -275,7 +274,7 @@ def _kernel_schedule(seg: MappedSegment, target: MatchTarget) -> KernelSchedule 
     return schedule_from_result(seg.schedule, seg.workload, module)
 
 
-def _route_of(seg: MappedSegment, use_pallas: bool) -> str:
+def _route_of(seg: MappedSegment) -> str:
     anchor = seg.anchor
     if anchor.op in ("conv2d", "dwconv2d"):
         return "tiled_conv"
@@ -289,7 +288,7 @@ def _route_of(seg: MappedSegment, use_pallas: bool) -> str:
     plain_requant = requant is not None and not (
         "scale" in requant.attrs or "addend" in requant.attrs
     )
-    if use_pallas and anchor.op == "dense" and plain_requant and int8:
+    if anchor.op == "dense" and plain_requant and int8:
         return "pallas_gemm"
     if seg.workload is None:
         return "structural"
@@ -300,8 +299,6 @@ def lower(
     mapped: MappedGraph,
     target: MatchTarget | str | None = None,
     *,
-    use_pallas: bool = True,
-    band_tiling: bool = True,
     allow_spill: bool = True,
     hill_climb_iters: int = 200,
     device=None,
@@ -310,11 +307,9 @@ def lower(
 
     ``target`` defaults to ``mapped.target``; a string is resolved as a
     registered target name (:mod:`repro_torch.targets.registry`) and must
-    match the target the graph was dispatched on.  ``use_pallas=False``
-    forces dense segments onto the reference route and
-    ``band_tiling=False`` collapses convs to one whole-array band.
-    ``device`` is where the model runs: CUDA unless the caller asks for
-    ``"cpu"`` — without a card the default raises, it never falls back.
+    match the target the graph was dispatched on.  ``device`` is where the
+    model runs: CUDA unless the caller asks for ``"cpu"`` — without a card
+    the default raises, it never falls back.
     """
     dev = resolve_device(device)
     if target is None:
@@ -374,13 +369,13 @@ def lower(
         out_name = seg.output_node.name
         with obs.span("lower.segment", cat="compile") as sp:
             ksched = _kernel_schedule(seg, target)
-            route = _route_of(seg, use_pallas)
+            route = _route_of(seg)
             sp.set(segment=seg.anchor.name, module=seg.module, route=route)
         obs.counter(f"lower.route.{route}").inc()
         meta: dict = {"pattern": seg.pattern}
         lane = f"run:{seg.module}"  # the segment's own span lane (CompiledModel.run)
         if route == "tiled_conv":
-            impl, block_oy = _tiled_conv_impl(seg.anchor, ksched, band_tiling)
+            impl, block_oy = _tiled_conv_impl(seg.anchor, ksched)
             fn = _fused_reference_fn(seg.nodes, inputs, out_name, anchor_impl=impl, lane=lane)
             meta["block_oy"] = block_oy
             fused = _fused_conv(seg, inputs)

@@ -17,7 +17,8 @@ route (one block row of its grid per batch row), and the GEMM route
 (``a8 = x.reshape(x.shape[0], -1)``), where the rows become the GEMM's M:
 ``matmul_requant`` runs at M = B.  Per-request outputs therefore stay
 bit-exact with ``CompiledModel.run`` one request at a time (held by
-tests/test_torch_serve.py and ``chip_smoke.py``'s ``[cnn-serve]``).
+tests/test_torch_serve.py and, on the card, by tests/test_torch_cuda.py's
+``test_sixteen_slot_server_bit_exact_on_card``).
 
 Two execution surfaces, as in the reference:
 

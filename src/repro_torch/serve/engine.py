@@ -33,8 +33,8 @@ thread:
 
 Bit-exactness: a served output is a row of the same fused executors
 ``CompiledModel.run`` calls, run over the folded batch — held
-per-request by tests/test_torch_serve.py and under load by
-``chip_smoke.py``'s ``[cnn-serve]``.
+per-request by tests/test_torch_serve.py and, on the card, by
+tests/test_torch_cuda.py's ``test_sixteen_slot_server_bit_exact_on_card``.
 """
 
 from __future__ import annotations

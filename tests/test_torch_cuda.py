@@ -1,16 +1,19 @@
-"""The port on the CUDA card: the Hopper kernels against their plain
-versions (the GEMM's segment entry also on arena views and fractional
-inputs, and one launch per GEMM segment; the fused conv at every conv layer
-shape of MobileNetV1-0.25 and DS-CNN's first, one launch per conv segment on
-h100; the bf16 tensor-core paths also at ragged head dims and
-lengths, on misaligned rows and on rows with no valid key), one net through the CNN main path bit-exact, a 2-layer LM
-whose prefill goes through the flash kernel, the two scans over many
-time chunks at full width (``rglru_scan`` on both sides of its short-T
-threshold, both with decays slow enough that the carried state shows),
-2-layer MoE and mamba2 LMs through ``moe_gmm`` and ``ssd_scan`` (``moe_gmm`` also with
-routed rows, and one captured MoE decode replayed under two routings), and a 3-layer recurrentgemma
-LM through ``rglru_scan`` and the windowed flash kernel.  Marked ``cuda``; without a
-card each test skips (decided inside the fixture, never at import)."""
+"""The port on the CUDA card: every kernel- and path-level correctness check.
+
+The Hopper kernels against their plain versions: both GEMM entries bit-exact
+on the CNN path's shapes, the test grid and ragged shapes (the segment entry
+also on arena views, fractional inputs and a bias beyond 2^24; both branches,
+each forced, across the rule's knee; one launch of one device kernel per GEMM
+segment); the fused conv at every conv layer shape of MobileNetV1-0.25 and
+DS-CNN's first; flash, ``moe_gmm``, ``ssd_scan`` and ``rglru_scan`` on their
+test grids, ragged, strided and misaligned operands and the served models'
+shapes (``moe_gmm`` also with routed rows).  The CNN paths: the four
+MLPerf-Tiny nets on gap9, diana and h100 eagerly and by AOT replay in both
+memory modes, bit-exact with exact launch counts; pipelined and streamed
+runs; the 16-slot request server.  Small LMs through the kernels against the
+CPU.  Marked ``cuda``; without a card each test skips (decided inside the
+fixture, never at import).  ``chip_smoke.py`` times the kernels and runs the
+full-width phases."""
 
 import numpy as np
 import pytest
@@ -40,10 +43,19 @@ from repro_torch.kernels import (
 from repro_torch.kernels.ref import rglru_scan_ref, ssd_scan_ref
 from repro_torch.models import LM
 from repro_torch.models import moe as pmoe
+from repro_torch.targets import make_h100_target
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(1, 640, 128), (1, 128, 8), (1, 256, 2), (1, 64, 12), (8, 16, 128), (128, 128, 256), (3, 37, 11), (48, 80, 112)]
+# (K, N) of every dense on the CNN path: all run at M = 1, and DAE's at the
+# rows of a served batch
+MAIN_KN = [(640, 128), (128, 128), (128, 8), (8, 128), (128, 640), (64, 10), (256, 2), (64, 12)]
+# both GEMM entries: the main path's shapes at M = 1, 2 and 16, the kernel
+# test grid, and ragged M, N and K (heads of N = 2 and 10, K = 8 and 13, M
+# one past a 16-row tile, K beyond one block's staged 1024 columns)
+SHAPES = ([(m, k, n) for m in (1, 2, 16) for k, n in MAIN_KN]
+          + [(8, 16, 128), (32, 64, 128), (128, 128, 256), (16, 96, 384), (3, 37, 11), (48, 80, 112)]
+          + [(17, 13, 10), (2, 8, 2), (17, 640, 10), (1, 13, 640), (33, 200, 24), (5, 2100, 40), (16, 1030, 9)])
 
 
 @pytest.fixture
@@ -53,9 +65,57 @@ def cuda():
     return torch.device("cuda")
 
 
+def _device_nodes(fn) -> list[str]:
+    """The device work one call of ``fn`` enqueues, read through the driver
+    from a CUDA graph that captures one call: each kernel node's function
+    name (mangled), and ``"node type <t>"`` (``CUgraphNodeType``: 1 a copy,
+    2 a fill, ...) for any other node.  A graph holds exactly what the call
+    enqueues; a profiler session on the card now and then records none of
+    it."""
+    import ctypes
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                    ("shared_bytes", ctypes.c_uint), ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    driver = ctypes.CDLL("libcuda.so.1")
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert driver.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert driver.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    out = []
+    for node in nodes:
+        t = ctypes.c_int()
+        assert driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0
+        if t.value != 0:
+            out.append(f"node type {t.value}")
+            continue
+        p = KernelNodeParams()
+        assert driver.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p)) == 0
+        func = ctypes.c_void_p(p.func)
+        if not p.func:  # a node made from a library kernel names it by its CUkernel
+            assert driver.cuKernelGetFunction(ctypes.byref(func), ctypes.c_void_p(p.kern)) == 0
+        name = ctypes.c_char_p()
+        assert driver.cuFuncGetName(ctypes.byref(name), func) == 0
+        out.append(name.value.decode())
+    return out
+
+
+def _target(name: str):
+    """A target by name; the card's own h100 built here (nothing registers it on import)."""
+    return make_h100_target() if name == "h100" else name
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "column stride M"])
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("M,K,N", SHAPES)
-def test_kernel_matches_plain_version(cuda, M, K, N, transposed):
+def test_kernel_matches_plain_version(cuda, M, K, N, transposed, layout):
     rng = np.random.default_rng(M * K + N)
     a = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8)).to(cuda)
     if transposed:  # the (K, N) view of an (N, K) weight, as the lowering passes it
@@ -64,14 +124,17 @@ def test_kernel_matches_plain_version(cuda, M, K, N, transposed):
         w = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8)).to(cuda)
     mult = torch.from_numpy(rng.integers(1, 8, (N,)).astype(np.int32)).to(cuda)
     bias = torch.from_numpy(rng.integers(-1000, 1000, (N,)).astype(np.int32)).to(cuda)
+    if layout == "column stride M":  # element-wise loads
+        a = a.T.contiguous().T
     for rounding in ("floor", "even"):
         for relu in (False, True):
-            before = matmul_requant.launches
-            got = matmul_requant(a, w, mult, bias, shift=5, relu=relu, rounding=rounding)
-            torch.cuda.synchronize()
-            assert matmul_requant.launches == before + 1
-            want = matmul_requant_plain(a, w, mult, bias, shift=5, relu=relu, rounding=rounding)
-            assert torch.equal(got, want), (rounding, relu)
+            for shift in (0, 5, 8, 13):
+                before = matmul_requant.launches
+                got = matmul_requant(a, w, mult, bias, shift=shift, relu=relu, rounding=rounding)
+                torch.cuda.synchronize()
+                assert matmul_requant.launches == before + 1
+                want = matmul_requant_plain(a, w, mult, bias, shift=shift, relu=relu, rounding=rounding)
+                assert torch.equal(got, want), (rounding, relu, shift)
 
 
 def test_kernel_rejects_mixed_devices(cuda):
@@ -99,21 +162,18 @@ def test_dscnn_main_path_bit_exact_on_card(cuda):
     assert cm.verify(params, x, per_segment=True).exact
 
 
-# the GEMM segment entry (matmul_requant_f32): every dense (K, N) of the CNN
-# path at M = 1 and the served M = 16, and ragged M, N, K
-MAIN_KN = [(640, 128), (128, 128), (128, 8), (8, 128), (128, 640), (64, 10), (256, 2), (64, 12)]
-SEGMENT_SHAPES = [(m, k, n) for m in (1, 16) for k, n in MAIN_KN] + [
-    (17, 13, 10), (2, 8, 2), (17, 640, 10), (1, 13, 640), (33, 200, 24), (5, 2100, 40)]
-
-
-def _segment_operands(cuda, M, K, N, seed, fractional=False):
+def _segment_operands(cuda, M, K, N, seed, fractional=False, big_bias=False):
+    """Integer-valued float32 activations (M, K), the dense weight (N, K)
+    and bias (N,) on the card, as the lowering holds them; ``big_bias``
+    draws the bias beyond 2^24, where a float32 holds only even integers."""
     rng = np.random.default_rng(seed)
     x = rng.integers(-128, 128, (M, K)).astype(np.float32)
     w = rng.integers(-128, 128, (N, K)).astype(np.float32)
     if fractional:  # inside int8 range: truncation toward zero must agree
         x = np.clip(x + rng.uniform(-0.99, 0.99, x.shape), -128.99, 127.99).astype(np.float32)
         w = np.clip(w + rng.uniform(-0.99, 0.99, w.shape), -128.99, 127.99).astype(np.float32)
-    b = rng.integers(-1000, 1000, (N,)).astype(np.float32)
+    hi = 1 << 30 if big_bias else 1000
+    b = rng.integers(-hi, hi, (N,)).astype(np.float32)
     return [torch.from_numpy(v).to(cuda) for v in (x, w, b)]
 
 
@@ -126,50 +186,40 @@ def _segment_equal(x, w, b, **kw):
     assert got.dtype == torch.float32 and torch.equal(got, want), kw
 
 
-@pytest.mark.parametrize("M,K,N", SEGMENT_SHAPES)
-def test_segment_entry_matches_plain_version(cuda, M, K, N):
-    x, w, b = _segment_operands(cuda, M, K, N, seed=M * K + N)
+@pytest.mark.parametrize("variant", ["as drawn", "fractional", "bias beyond 2^24", "misaligned", "column stride M"])
+@pytest.mark.parametrize("M,K,N", SHAPES)
+def test_segment_entry_matches_plain_version(cuda, M, K, N, variant):
+    """Bit-exact with the plain version as drawn, with fractional operands
+    inside int8 range, a bias beyond 2^24, A one float off 16 bytes (an
+    arena view) and A with column stride M; with and without the bias."""
+    x, w, b = _segment_operands(cuda, M, K, N, seed=M * K + N, fractional=variant == "fractional",
+                                big_bias=variant == "bias beyond 2^24")
+    if variant == "misaligned":
+        x = _off_by_one(x)
+    if variant == "column stride M":
+        x = x.T.contiguous().T
     for rounding in ("floor", "even"):
         for relu in (False, True):
             for bias in (b, None):
-                _segment_equal(x, w, bias, shift=5, relu=relu, rounding=rounding)
+                for shift in (0, 5, 13):
+                    _segment_equal(x, w, bias, shift=shift, relu=relu, rounding=rounding)
     with pytest.raises(TypeError):  # the lowering casts an int8 graph input to float32 first
         matmul_requant_f32(x.to(torch.int8), w, b)
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 640, 128), (1, 8, 128), (1, 13, 10), (1, 2100, 40)])
-def test_both_branches_match_plain_version_at_one_row(cuda, M, K, N):
-    """The rule sends these calls to the GEMV branch; the tensor-core
-    branch, forced, must give the same bits there (the sweep in
-    chip_smoke.py times both)."""
-    import importlib
-
-    mr = importlib.import_module("repro_torch.kernels.matmul_requant")
-    x, w, b = _segment_operands(cuda, M, K, N, seed=3)
-    want = matmul_requant_f32_plain(x, w, b, shift=5, relu=True, rounding="even")
-    for path in (mr.TENSOR_CORES, mr.GEMV):
-        out = torch.empty((M, N), dtype=torch.float32, device=cuda)
-        mr._launch(x, w, None, b, out, w.stride(0), w.stride(1), 5, "even", True, segment=True, path=path)
-        torch.cuda.synchronize()
-        assert torch.equal(out, want), path
-
-
-@pytest.mark.parametrize("segment", [False, True])
-@pytest.mark.parametrize("M,K,N", [(16, 640, 128), (16, 128, 640), (17, 13, 10), (40, 1030, 9), (16, 128, 4096)])
-def test_both_branches_match_plain_version_at_many_rows(cuda, M, K, N, segment):
-    """Both branches of both entries, each forced, give the plain version's
-    bits at served and ragged row counts, on either side of the rule's knee;
-    the rule takes the GEMV up to 512 blocks of 8 outputs."""
+def _both_branches_match(cuda, M, K, N, segment, seed):
+    """Both branches of one entry, each forced, give the plain version's
+    bits; the rule takes the GEMV up to 512 blocks of 8 outputs."""
     import importlib
 
     mr = importlib.import_module("repro_torch.kernels.matmul_requant")
     kw = dict(shift=5, relu=True, rounding="even")
     if segment:
-        x, w, b = _segment_operands(cuda, M, K, N, seed=6)
+        x, w, b = _segment_operands(cuda, M, K, N, seed=seed)
         want = matmul_requant_f32_plain(x, w, b, **kw)
         args, strides, dtype = (x, w, None, b), (w.stride(0), w.stride(1)), torch.float32
     else:
-        rng = np.random.default_rng(6)
+        rng = np.random.default_rng(seed)
         a, w = (torch.from_numpy(rng.integers(-128, 128, s).astype(np.int8)).to(cuda) for s in ((M, K), (N, K)))
         w = w.T  # the (K, N) view of an (N, K) weight
         mult = torch.from_numpy(rng.integers(1, 8, (N,)).astype(np.int32)).to(cuda)
@@ -182,6 +232,26 @@ def test_both_branches_match_plain_version_at_many_rows(cuda, M, K, N, segment):
         torch.cuda.synchronize()
         assert torch.equal(out, want), path
     assert mr.launch_shape(M, N, K)[2] == (mr.GEMV if M * -(-N // 8) <= 512 else mr.TENSOR_CORES)
+
+
+@pytest.mark.parametrize("segment", [False, True])
+@pytest.mark.parametrize("M,K,N", [(1, k, n) for k, n in MAIN_KN] + [(1, 8, 128), (1, 13, 10), (1, 2100, 40),
+                                                                      (1, 128, 4096), (1, 128, 8192)])
+def test_both_branches_match_plain_version_at_one_row(cuda, M, K, N, segment):
+    """At one row, as the CNN path calls every dense, the rule takes the
+    GEMV up to N = 4096; the branch it leaves, forced, must give the same
+    bits (chip_smoke.py's sweep times both)."""
+    _both_branches_match(cuda, M, K, N, segment, seed=3)
+
+
+@pytest.mark.parametrize("segment", [False, True])
+@pytest.mark.parametrize("M,K,N", [(16, k, n) for k, n in MAIN_KN[:5]] + [
+    (17, 13, 10), (40, 1030, 9), (16, 128, 4096), (16, 128, 256), (16, 128, 384), (16, 128, 512), (32, 128, 128),
+    (64, 128, 128)])
+def test_both_branches_match_plain_version_at_many_rows(cuda, M, K, N, segment):
+    """At DAE's served rows, ragged row counts and on either side of the
+    rule's knee."""
+    _both_branches_match(cuda, M, K, N, segment, seed=6)
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 640, 128), (16, 640, 128), (16, 8, 128), (17, 13, 10)])
@@ -206,15 +276,13 @@ def test_segment_entry_truncates_non_integer_inputs_as_the_cast_does(cuda, M, K,
         _segment_equal(x, w, b, shift=5, relu=False, rounding=rounding)
 
 
+@pytest.mark.parametrize("tgt", ["gap9", "h100"])
 @pytest.mark.parametrize("M", [1, 16])
-def test_gemm_segment_is_one_launch_of_one_device_kernel(cuda, M):
-    """Every DAE GEMM segment on the card: one counted launch, and the
-    profiler sees one device kernel, the GEMM's, and no cast or fill."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def test_gemm_segment_is_one_launch_of_one_device_kernel(cuda, M, tgt):
+    """Every DAE GEMM segment on the card: one counted launch, and a graph
+    of one call holds one node, the GEMM's kernel: no cast and no fill."""
     g = mlperf_tiny_networks()["DAE"]
-    cm = lower(dispatch(g, "gap9", budget=300))
+    cm = lower(dispatch(g, _target(tgt), budget=300))
     dev_params = params_to_torch(init_graph_params(g), cuda)
     segments = [ls for ls in cm.segments if ls.route == "pallas_gemm"]
     assert len(segments) == 10
@@ -222,38 +290,61 @@ def test_gemm_segment_is_one_launch_of_one_device_kernel(cuda, M):
         sp = ls.params_slice(dev_params)
         k = sp[ls.segment.anchor.name]["w"].shape[1]
         x = torch.from_numpy(np.random.default_rng(k).integers(-128, 128, (M, k)).astype(np.float32)).to(cuda)
+        before = matmul_requant.launches
         ls.fn(sp, x)
         torch.cuda.synchronize()
-        before = matmul_requant.launches
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            ls.fn(sp, x)
-            torch.cuda.synchronize()
         assert matmul_requant.launches == before + 1
-        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        assert len(names) == 1 and "matmul_requant" in names[0], names
+        # the call's only device work: that one launch, no cast and no fill
+        nodes = _device_nodes(lambda: ls.fn(sp, x))  # noqa: B023 (called before the loop moves on)
+        assert len(nodes) == 1 and "matmul_requant" in nodes[0], nodes
+
+
+def _cnn_launches(cm, runs: int) -> dict[str, int]:
+    """The launches of ``runs`` runs of a CNN: one GEMM per GEMM segment, one
+    fused conv per fused conv segment, and nothing else."""
+    convs = sum(ls.meta.get("kernel") == "conv_requant" for ls in cm.segments)
+    return {**dict.fromkeys(_graphs.launch_counts(), 0), "matmul_requant": cm.routes().get("pallas_gemm", 0) * runs,
+            "conv_requant": convs * runs}
+
+
+def _launched_since(before: dict[str, int]) -> dict[str, int]:
+    return {k: v - before[k] for k, v in _graphs.launch_counts().items()}
 
 
 @pytest.mark.parametrize("memory", ["xla", "arena"])
-def test_dae_aot_replay_bit_exact_with_exact_launches(cuda, memory):
+@pytest.mark.parametrize("tgt", ["gap9", "diana", "h100"])
+@pytest.mark.parametrize("net", ["DAE", "DSCNN", "ResNet", "MobileNet"])
+def test_dae_aot_replay_bit_exact_with_exact_launches(cuda, net, tgt, memory):
+    """Each net on each target, eagerly (``CompiledModel.run``) and by AOT
+    replay: bit-exact with the CPU interpreter, a rerun of the first request
+    too (the arena reused), and one GEMM launch per GEMM segment and one
+    fused conv launch per fused conv segment a request, nothing else."""
     from repro_torch.backend import compile_aot
 
-    g = mlperf_tiny_networks()["DAE"]
+    g = mlperf_tiny_networks()[net]
     params = init_graph_params(g)
     rng = np.random.default_rng(4)
     xs = [{k: rng.integers(-128, 128, s).astype(np.float32) for k, s in g.inputs.items()} for _ in range(3)]
     cpu_params = params_to_torch(params, "cpu")
     refs = [execute_graph(g, cpu_params, x, device="cpu") for x in xs]
-    for tgt in ("gap9", "diana"):
-        cm = lower(dispatch(g, tgt, budget=300))
-        am = compile_aot(cm, memory=memory)
-        am.warmup(params, xs[0])
-        before = matmul_requant.launches
-        outs = [am.run(params, x) for x in xs]
-        torch.cuda.synchronize()
-        assert matmul_requant.launches - before == cm.routes()["pallas_gemm"] * len(xs)
-        for out, ref in zip(outs, refs):
-            for k in ref:
-                assert torch.equal(out[k].cpu(), ref[k]), (tgt, k)
+    cm = lower(dispatch(g, _target(tgt), budget=300))
+    dev_params = params_to_torch(params, cuda)
+    before = _graphs.launch_counts()
+    eager = [cm.run(dev_params, x) for x in xs]
+    torch.cuda.synchronize()
+    assert _launched_since(before) == _cnn_launches(cm, len(xs))
+    am = compile_aot(cm, memory=memory)
+    am.warmup(params, xs[0])
+    before = _graphs.launch_counts()
+    outs = [am.run(params, x) for x in xs]
+    torch.cuda.synchronize()
+    assert _launched_since(before) == _cnn_launches(cm, len(xs))
+    outs.append(am.run(params, xs[0]))
+    for out, e, ref in zip(outs, eager + eager[:1], refs + refs[:1]):
+        for k in ref:
+            assert out[k].device.type == "cuda"
+            assert torch.equal(e[k].cpu(), ref[k]), ("eager", k)
+            assert torch.equal(out[k].cpu(), ref[k]), ("aot", k)
 
 
 # the fused conv (conv_requant): every distinct conv layer of MobileNetV1-0.25
@@ -331,9 +422,6 @@ def test_conv_segments_launch_once_each_on_h100(cuda, net):
     """On the card's own target every conv segment of the net is one
     launch of the fused conv, eagerly and under AOT replay, bit-exact
     with the CPU interpreter."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.backend import compile_aot
     from repro_torch.targets import make_h100_target
 
@@ -357,13 +445,12 @@ def test_conv_segments_launch_once_each_on_h100(cuda, net):
     assert ls.input_names == ("x",)
     sp = ls.params_slice(dev_params)
     xin = torch.from_numpy(x["x"]).to(cuda)
+    before = conv_requant.launches
     ls.fn(sp, xin)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ls.fn(sp, xin)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert len(names) == 1 and "conv_requant" in names[0], names
+    assert conv_requant.launches == before + 1
+    nodes = _device_nodes(lambda: ls.fn(sp, xin))
+    assert len(nodes) == 1 and "conv_requant" in nodes[0], nodes
     am = compile_aot(cm)
     am.warmup(params, x)
     before = conv_requant.launches
@@ -376,8 +463,11 @@ def test_conv_segments_launch_once_each_on_h100(cuda, net):
 
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the kernel test grid, ragged lengths, and qwen2.5-3b's heads at the serving
+# engine's prompt lengths and past them
 FLASH_GRID = [(1, 4, 4, 64, 64, 32), (2, 8, 2, 128, 128, 64), (1, 6, 1, 96, 96, 16), (4, 16, 2, 24, 24, 128),
-              (1, 4, 2, 37, 37, 256), (2, 4, 1, 5, 5, 24)]
+              (1, 4, 2, 37, 37, 256), (2, 4, 1, 5, 5, 24), (2, 4, 1, 24, 24, 24), (2, 4, 1, 37, 37, 24),
+              (4, 16, 2, 4, 4, 128), (4, 16, 2, 17, 17, 128), (4, 16, 2, 35, 35, 128)]
 
 
 def _qkv(cuda, B, H, KV, Sq, Sk, D, dtype, seed, bshd=False):
@@ -393,7 +483,8 @@ def _qkv(cuda, B, H, KV, Sq, Sk, D, dtype, seed, bshd=False):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,D", FLASH_GRID)
 def test_flash_kernel_matches_plain_version(cuda, B, H, KV, Sq, Sk, D, causal, dtype):
-    q, k, v = _qkv(cuda, B, H, KV, Sq, Sk, D, dtype, seed=Sq * D, bshd=D == 128)
+    # a model's heads (D >= 128) as the model lays them out
+    q, k, v = _qkv(cuda, B, H, KV, Sq, Sk, D, dtype, seed=Sq * D, bshd=D >= 128)
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -403,16 +494,22 @@ def test_flash_kernel_matches_plain_version(cuda, B, H, KV, Sq, Sk, D, causal, d
     torch.testing.assert_close(got.float(), want.float(), atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "Sq,Sk,q_offset,causal,window",
-    [(16, 64, 48, True, None), (64, 64, 0, True, 16), (32, 64, 32, True, 8), (64, 64, 0, False, 24),
-     (8, 32, 100, True, 4), (1, 200, 199, True, None), (40, 300, 260, True, 70)],
+    "B,H,KV,Sq,Sk,D,q_offset,causal,window",
+    [(2, 4, 2, 16, 64, 32, 48, True, None), (2, 4, 2, 64, 64, 32, 0, True, 16), (2, 4, 2, 32, 64, 32, 32, True, 8),
+     (2, 4, 2, 64, 64, 32, 0, False, 24), (2, 4, 2, 8, 32, 32, 100, True, 4), (2, 4, 2, 1, 200, 32, 199, True, None),
+     (2, 4, 2, 40, 300, 32, 260, True, 70), (2, 4, 2, 1, 40, 32, 39, True, None),
+     (2, 4, 2, 24, 300, 32, 276, True, None)]
+    # recurrentgemma-2b's local attention (window 2048) at the serving
+    # engine's prompt lengths, and its heads with a window that bites
+    + [(4, 10, 1, S, S, 256, 0, True, 2048) for S in (4, 17, 24, 35)] + [(1, 10, 1, 300, 300, 256, 0, True, 64)],
 )
-def test_flash_kernel_offset_and_window(cuda, Sq, Sk, q_offset, causal, window):
-    q, k, v = _qkv(cuda, 2, 4, 2, Sq, Sk, 32, torch.float32, seed=Sq + Sk)
+def test_flash_kernel_offset_and_window(cuda, B, H, KV, Sq, Sk, D, q_offset, causal, window, dtype):
+    q, k, v = _qkv(cuda, B, H, KV, Sq, Sk, D, dtype, seed=Sq + Sk, bshd=D >= 128)
     got = flash_attention(q, k, v, causal=causal, q_offset=q_offset, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, window=window)
-    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
 
 
 def _off_by_one(x):
@@ -425,7 +522,7 @@ def _off_by_one(x):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("Sq,Sk", [(1, 1), (1, 129), (63, 65), (65, 63), (129, 129), (129, 1)])
+@pytest.mark.parametrize("Sq,Sk", [(sq, sk) for sq in (1, 63, 65, 129) for sk in (1, 63, 65, 129)])
 @pytest.mark.parametrize("D", [24, 80, 256])
 def test_flash_bf16_ragged_head_dims_and_lengths(cuda, D, Sq, Sk, causal):
     """The tensor-core path zero-fills D to a multiple of 16 and masks
@@ -437,14 +534,15 @@ def test_flash_bf16_ragged_head_dims_and_lengths(cuda, D, Sq, Sk, causal):
     torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v, **kw).float(), atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [24, 128, 256])
-def test_flash_kernel_takes_misaligned_rows(cuda, D, dtype):
+def test_flash_kernel_takes_misaligned_rows(cuda, D, dtype, causal):
     q, k, v = (_off_by_one(t) for t in _qkv(cuda, 2, 4, 2, 70, 70, D, dtype, seed=D))
     assert q.data_ptr() % 16 != 0
-    got = flash_attention(q, k, v, causal=True)
+    got = flash_attention(q, k, v, causal=causal)
     tol = FLASH_TOL[dtype]
-    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v, causal=True).float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v, causal=causal).float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -491,8 +589,13 @@ def test_two_layer_lm_prefill_launches_flash_per_layer(cuda, arch):
     assert flash_attention.launches - before == cfg.n_layers  # decode attention is plain torch
 
 
-GMM_SHAPES = [(2, 16, 32, 64), (8, 64, 128, 128), (3, 8, 16, 384), (3, 37, 45, 70), (5, 1, 7, 3),
-              (40, 32, 1536, 512), (40, 32, 512, 1536)]
+# the kernel test grid, ragged shapes, granite-moe-3b-a800m's wi and wo at the
+# serving engine's 4 slots x capacity 8, a refill's 16 and one slot's decode,
+# and granite-4.0-h-small's at a decode's 8 slots and a prefill's 256 and 512
+GMM_SHAPES = [(2, 16, 32, 64), (8, 64, 128, 128), (3, 8, 16, 384), (3, 37, 45, 70), (5, 1, 7, 3), (2, 33, 100, 65),
+              (3, 37, 64, 72)] + [
+    (E, C, *dims) for E, Cs, D, F in ((40, (32, 16, 8), 1536, 512), (72, (8, 256, 512), 4096, 768))
+    for C in Cs for dims in ((D, F), (F, D))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -508,9 +611,11 @@ def test_moe_gmm_kernel_matches_plain_version(cuda, E, C, D, F, dtype):
     assert got.dtype == dtype and got.shape == (E, C, F)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), moe_gmm_plain(x, w).float(), atol=tol, rtol=tol)
-    # x as the (E, C, D) view of (C, E, D) storage
+    # x as the (E, C, D) view of (C, E, D) storage; x and w one element off 16 bytes
     xt = x.transpose(0, 1).contiguous().transpose(0, 1)
     torch.testing.assert_close(moe_gmm(xt, w).float(), moe_gmm_plain(x, w).float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(moe_gmm(_off_by_one(x), _off_by_one(w)).float(), moe_gmm_plain(x, w).float(),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("layout", ["misaligned", "strided"])
@@ -537,9 +642,17 @@ def _granite_decode_rows(B, E, filled, seed):
     return torch.stack([(torch.randperm(E, generator=g) < filled).int() for _ in range(B)])
 
 
+def _granite_prefill_rows(cap, seed):
+    """(1, 72) int32: a prefill's ragged pairs an expert, cap / 4 to 3 cap / 4,
+    one expert in ten empty."""
+    counts = torch.randint(cap // 4, 3 * cap // 4 + 1, (1, 72), generator=torch.Generator().manual_seed(seed),
+                           dtype=torch.int32)
+    return counts * (torch.arange(72) % 10 != 0)
+
+
 # (label, E, B, cap, D, F, rows): granite's decode (10 of 72 experts, wi and
-# wo), B = 4 decode rows, a ragged prefill of 256 slots an expert (about 142
-# pairs, some experts empty), and a misaligned F in f32
+# wo), B = 4 decode rows, ragged prefills of 256 and 512 slots an expert
+# (some experts empty), and a misaligned F in f32
 ROUTED_CASES = [
     ("decode wi", 72, 1, 8, 4096, 768, lambda: _granite_decode_rows(1, 72, 10, 0)),
     ("decode wo", 72, 1, 8, 768, 4096, lambda: _granite_decode_rows(1, 72, 10, 1)),
@@ -547,6 +660,9 @@ ROUTED_CASES = [
     ("prefill 256", 72, 1, 256, 4096, 768,
      lambda: torch.randint(60, 257, (1, 72), generator=torch.Generator().manual_seed(3), dtype=torch.int32)
      * (torch.arange(72) % 9 != 0)),
+    ("prefill 256 wo", 72, 1, 256, 768, 4096, lambda: _granite_prefill_rows(256, 5)),
+    ("prefill 512 wi", 72, 1, 512, 4096, 768, lambda: _granite_prefill_rows(512, 6)),
+    ("prefill 512 wo", 72, 1, 512, 768, 4096, lambda: _granite_prefill_rows(512, 7)),
     ("prefill B=4", 6, 4, 40, 96, 70, lambda: torch.randint(0, 41, (4, 6), generator=torch.Generator().manual_seed(4),
                                                            dtype=torch.int32)),
 ]
@@ -630,12 +746,16 @@ def test_a_captured_moe_decode_reads_each_replays_routing(cuda, dtype):
     assert eager[0]["moe.rows_computed"] > 0 and eager[0]["moe.routed_pairs"] == 2 * cfg.top_k
 
 
-# the kernel test grid, ragged shapes, rows the kernels cannot read as
-# vectors (P = 6, N = 10), and mamba2-1.3b's: the serving prefill (one chunk),
-# then many 64-row chunks at full width with a ragged last one
-SSD_SHAPES = [(1, 2, 32, 8, 16), (2, 4, 64, 16, 32), (1, 3, 37, 8, 16), (2, 2, 5, 16, 16), (4, 64, 24, 64, 128),
-              (1, 64, 200, 64, 128), (2, 3, 150, 6, 10), (1, 64, 4096, 64, 128), (4, 64, 512, 64, 128),
-              (1, 64, 4095, 64, 128)]
+# (B, H, T, P, N, decay): the kernel test grid, ragged shapes, rows the
+# kernels cannot read as vectors (P = 6, N = 10), and mamba2-1.3b's: the
+# serving prefills (one chunk), then many 64-row chunks at full width with a
+# ragged last one; at decay 0.2 a chunk decays by about e^-10, at 0.002 by
+# about e^-0.1 and every chunk's output leans on the carried state
+SSD_SHAPES = [(1, 2, 32, 8, 16, 0.2), (2, 4, 64, 16, 32, 0.2), (1, 3, 37, 8, 16, 0.2), (2, 2, 5, 16, 16, 0.2),
+              (1, 2, 100, 16, 32, 0.2), (4, 64, 4, 64, 128, 0.2), (4, 64, 24, 64, 128, 0.2), (4, 64, 35, 64, 128, 0.2),
+              (1, 64, 200, 64, 128, 0.2), (2, 3, 150, 6, 10, 0.2), (1, 64, 4096, 64, 128, 0.2),
+              (4, 64, 512, 64, 128, 0.2), (1, 64, 4095, 64, 128, 0.2), (1, 64, 4096, 64, 128, 0.002),
+              (1, 3, 200, 72, 20, 0.002)]
 
 
 def _ssd_operands(cuda, B, H, T, P, N, bc_dtype, seed, decay=0.2):
@@ -649,9 +769,9 @@ def _ssd_operands(cuda, B, H, T, P, N, bc_dtype, seed, decay=0.2):
 
 
 @pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,T,P,N", SSD_SHAPES)
-def test_ssd_scan_kernel_matches_plain_version(cuda, B, H, T, P, N, bc_dtype):
-    xb, a, Bm, Cm = _ssd_operands(cuda, B, H, T, P, N, bc_dtype, seed=T * P + N)
+@pytest.mark.parametrize("B,H,T,P,N,decay", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain_version(cuda, B, H, T, P, N, decay, bc_dtype):
+    xb, a, Bm, Cm = _ssd_operands(cuda, B, H, T, P, N, bc_dtype, seed=T * P + N, decay=decay)
     before = ssd_scan.launches
     y, h = ssd_scan(xb, a, Bm, Cm)
     torch.cuda.synchronize()
@@ -714,8 +834,9 @@ def test_two_layer_moe_and_ssd_lm_on_card(cuda, arch):
 # the kernel test grid, ragged shapes, and recurrentgemma-2b's W = 2560: the
 # serving prefill, both sides of the one-chunk edge (64 steps: no chunk
 # pairs, one kernel; 65: two chunks, two kernels), and long prefills
-RGLRU_SHAPES = [(1, 32, 16), (2, 128, 64), (3, 64, 256), (2, 37, 45), (1, 5, 3), (4, 24, 2560), (1, 300, 2560),
-                (4, 64, 2560), (4, 65, 2560), (1, 4096, 2560), (1, 4097, 2560)]
+RGLRU_SHAPES = [(1, 32, 16), (2, 128, 64), (3, 64, 256), (2, 37, 45), (1, 5, 3), (3, 20, 130), (4, 4, 2560),
+                (4, 24, 2560), (4, 35, 2560), (1, 300, 2560), (4, 64, 2560), (4, 65, 2560), (1, 4096, 2560),
+                (1, 4097, 2560)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -742,13 +863,17 @@ def test_rglru_scan_kernel_matches_plain_version(cuda, B, T, W, dtype):
 @pytest.mark.parametrize("T", [129, 4096])
 def test_rglru_scan_split_path_carries_slow_decays(cuda, T, dtype):
     """Decays in U(0.99, 0.999): a 64-step chunk keeps about 0.6 of the
-    state entering it, so every chunk's output leans on the folded carry."""
+    state entering it, so every chunk's output leans on the folded carry;
+    also on (B, T, W) views of (T, B, W) storage."""
     rng = np.random.default_rng(T)
     a = torch.from_numpy(rng.uniform(0.99, 0.999, (2, T, 2560)).astype(np.float32)).to(cuda, dtype)
     b = torch.from_numpy(rng.normal(size=(2, T, 2560)).astype(np.float32)).to(cuda, dtype)
     h = rglru_scan(a, b)
-    torch.testing.assert_close(h, rglru_scan_plain(a, b), atol=1e-4, rtol=1e-4)
+    want = rglru_scan_plain(a, b)
+    torch.testing.assert_close(h, want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(h, rglru_scan_ref(a, b), atol=1e-4, rtol=1e-4)
+    at, bt = (x.transpose(0, 1).contiguous().transpose(0, 1) for x in (a, b))
+    torch.testing.assert_close(rglru_scan(at, bt), want, atol=1e-4, rtol=1e-4)
 
 
 def test_rglru_scan_kernel_rejects_mixed_dtypes_and_devices(cuda):
@@ -807,13 +932,20 @@ def test_recurrentgemma_lm_on_card(cuda):
 
 
 def _cnn_on_card(net: str, tgt: str, n: int):
+    """``net`` on ``tgt`` on the card and ``n`` requests, each run once by
+    ``CompiledModel.run``: those outputs, checked bit-exact with the CPU
+    interpreter, are what the compiled paths are held to."""
     g = mlperf_tiny_networks()[net]
     params = init_graph_params(g)
     rng = np.random.default_rng(3)
     xs = [{k: rng.integers(-128, 128, s).astype(np.float32) for k, s in g.inputs.items()} for _ in range(n)]
-    cm = lower(dispatch(g, tgt, budget=300))
+    cm = lower(dispatch(g, _target(tgt), budget=300))
     dev_params = params_to_torch(params, cm.device)
     refs = [cm.run(dev_params, x) for x in xs]
+    cpu_params = params_to_torch(params, "cpu")
+    for x, ref in zip(xs, refs):
+        want = execute_graph(g, cpu_params, x, device="cpu")
+        assert all(torch.equal(ref[k].cpu(), want[k]) for k in want)
     return cm, dev_params, xs, refs
 
 
@@ -869,22 +1001,26 @@ def test_one_captured_graph_per_batch_shape_on_card(cuda):
 
 
 @pytest.mark.parametrize("mode", ["aot", "pipeline"])
-def test_sixteen_slot_server_bit_exact_on_card(cuda, mode):
-    """40 DAE requests through 16 slots (rows = the GEMM's M): every row
-    bit-exact with CompiledModel.run, GEMM launches = segments x batches."""
+@pytest.mark.parametrize("tgt", ["gap9", "ne16_octa", "h100"])
+@pytest.mark.parametrize("net", ["DAE", "DSCNN"])
+def test_sixteen_slot_server_bit_exact_on_card(cuda, net, tgt, mode):
+    """40 requests through 16 slots (DAE's rows = the GEMM's M): every
+    request served, none rejected, every row bit-exact with
+    CompiledModel.run, and the GEMM and fused conv launches = their
+    segments x batches, nothing else."""
     from repro_torch.serve import ModelServer
 
-    cm, dev_params, xs, refs = _cnn_on_card("DAE", "gap9", 40)
+    cm, dev_params, xs, refs = _cnn_on_card(net, tgt, 40)
     with ModelServer(cm, dev_params, batch_slots=16, stream_depth=2, mode=mode) as srv:
         srv.warmup(xs[0])
         torch.cuda.synchronize()
-        before = matmul_requant.launches
+        before = _graphs.launch_counts()
         outs = [h.result(timeout=120) for h in [srv.submit(x) for x in xs]]
     torch.cuda.synchronize()
     _same_rows(outs, refs)
     stats = srv.stats()
-    assert stats["completed"] == len(xs) and stats["drained"]
-    assert matmul_requant.launches - before == cm.routes()["pallas_gemm"] * stats["batches"]
+    assert stats["completed"] == len(xs) and not stats["rejected"] and stats["drained"]
+    assert _launched_since(before) == _cnn_launches(cm, stats["batches"])
     cm.attrs.pop("serve")
 
 

@@ -20,6 +20,7 @@ against ``eager=True`` on the four families, and launch counts under
 replay.
 """
 
+import gc
 import warnings
 from functools import lru_cache
 
@@ -325,6 +326,27 @@ def test_replays_count_launches_exactly(cuda):
         torch.cuda.synchronize()
     assert _graphs.launch_counts()["moe_gmm"] - before["moe_gmm"] == 15
     assert torch.equal(g.output, want)
+
+
+@pytest.mark.cuda
+def test_the_collector_is_off_while_capturing(cuda):
+    """A dead reference cycle that holds another graph must not be
+    collected in the middle of a capture (destroying that graph there
+    invalidates the capture): the cyclic collector is on for the warm-up,
+    off for the capture and on again after it."""
+    x = torch.ones(4, device=cuda)
+    seen = []
+
+    def fn():
+        seen.append(gc.isenabled())
+        return x * 2
+
+    assert gc.isenabled()
+    g = _graphs.capture(fn, cuda)
+    assert seen == [True, False] and gc.isenabled()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g.output, x * 2)
 
 
 @pytest.mark.cuda

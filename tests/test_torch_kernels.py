@@ -1,8 +1,8 @@
 """The port's kernels on the CPU, bit-exact against the JAX reference.
 
 ``matmul_requant`` on a CPU tensor computes its plain int32 version, the
-arithmetic the CUDA kernel is held to on the card (``chip_smoke.py``,
-``tests/test_torch_cuda.py``).  The JAX kernel runs in Pallas interpret
+arithmetic the CUDA kernel is held to on the card
+(``tests/test_torch_cuda.py``).  The JAX kernel runs in Pallas interpret
 mode, as the reference's own tests run it.
 """
 
